@@ -1,0 +1,86 @@
+"""MRG — "MapReduce Gonzalez" (paper §3, Algorithm 1).
+
+Port of ``repro.core.mrg`` for in-memory inputs: round 1 runs GON on each
+of the executor's machine blocks, rounds 2+ reduce the k·m center union
+under the capacity ``c`` (Lemma 2 for 2 rounds ⇒ 4-approximation; Lemma
+3's multi-round generalization adds +2 per extra level), and the covering
+radius is one nearest-center pass over all points.
+
+Inputs are numpy arrays or tensors; point sources and the streamed
+(``chunk``) form are not ported yet and raise.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from .executor import Executor, SimExecutor, _block, _mrg_round  # noqa: F401
+
+
+class MRGResult(NamedTuple):
+    centers: torch.Tensor   # (k, d)
+    radius2: torch.Tensor   # () squared covering radius over ALL points
+    rounds: int             # number of GON levels used (2 = classic MRG)
+    # per-cluster weight sums of a weighted objective; always None here
+    weights: torch.Tensor | None = None
+
+
+def plan_rounds(n: int, m: int, k: int, capacity: int) -> int:
+    """Number of GON levels needed so the final instance fits ``capacity``.
+
+    Implements the machine-count recurrence m^(i) <= m (k/c)^i + (1-(k/c)^i)
+    / (1-k/c): run first-round style reductions until fewer than 2 machines
+    are needed. Returns total levels (>= 2). Raises if k > capacity (the
+    paper's hard feasibility requirement: a k-point instance must fit on one
+    machine).
+    """
+    if k > capacity:
+        raise ValueError(f"infeasible: k={k} exceeds single-machine capacity {capacity}")
+    levels = 1
+    machines = m
+    while machines * k > capacity:
+        machines = math.ceil(machines * k / capacity)
+        levels += 1
+        if levels > 64:
+            raise ValueError("round planning diverged (k too close to capacity; paper §3.3 requires 2k < c)")
+    return levels + 1  # +1 for the final single-machine GON
+
+
+def mrg(points, k: int, *, executor: Executor | None = None, m: int = 50,
+        capacity: int | None = None, impl: str = "auto",
+        chunk: int | None = None, objective=None, device=None) -> MRGResult:
+    """Paper Algorithm 1 on ``points (n, d)``, a numpy array or a tensor.
+
+    Without an ``executor`` it runs on ``SimExecutor(m, device=device)``;
+    ``device=None`` means ``"cuda"`` and raises where there is none.
+    ``capacity`` (rows; default: the machine size) triggers the multi-round
+    path when the k·m center union would not fit on one machine.
+
+    >>> import numpy as np
+    >>> x = np.random.default_rng(0).normal(size=(256, 2)).astype(np.float32)
+    >>> res = mrg(x, 4, m=8, device="cpu")
+    >>> tuple(res.centers.shape), res.rounds
+    ((4, 2), 2)
+    """
+    if chunk is not None:
+        raise NotImplementedError("chunk (streamed passes) is not ported yet")
+    if objective is not None:
+        raise NotImplementedError(
+            "only the plain k-center objective (objective=None) is ported")
+    if executor is None:
+        executor = SimExecutor(m=m, device=device)
+    elif device is not None:
+        raise ValueError("pass device= to the executor, not to mrg()")
+    centers, r2, rounds = executor.mrg(points, k, capacity=capacity,
+                                       impl=impl)
+    return MRGResult(centers, r2, rounds)
+
+
+def mrg_sim(points, k: int, m: int = 50, *, capacity: int | None = None,
+            impl: str = "auto", chunk: int | None = None,
+            device=None) -> MRGResult:
+    """Paper Algorithm 1 with m simulated machines on one device."""
+    return mrg(points, k, m=m, capacity=capacity, impl=impl, chunk=chunk,
+               device=device)

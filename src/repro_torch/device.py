@@ -1,0 +1,33 @@
+"""Where the port's tensors live.
+
+Entry points take ``device=None``, which means ``"cuda"``: the port runs on
+the card unless the caller asks for the CPU, and it raises, rather than
+carrying on on the CPU, where no CUDA device exists.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> ``cuda``; raises if the device asked for is CUDA and
+    PyTorch sees no CUDA device."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and PyTorch sees "
+            "none here; pass device='cpu' to run the plain versions")
+    return dev
+
+
+def as_points(points, device: torch.device) -> torch.Tensor:
+    """``points`` (a numpy array or a tensor) as a contiguous float32 tensor
+    on ``device``. The port holds points as float32, the kernels' type."""
+    if isinstance(points, np.ndarray):
+        points = torch.from_numpy(np.array(points, np.float32))  # a copy
+    elif not isinstance(points, torch.Tensor):
+        raise TypeError(
+            f"points must be a numpy array or a torch.Tensor, got "
+            f"{type(points).__name__} (point sources are not ported yet)")
+    return points.to(device=device, dtype=torch.float32).contiguous()

@@ -1,0 +1,39 @@
+"""Carry state between the JAX package and the port.
+
+The system has no weights; what crosses over is state: points, masks,
+running ``min_d2``, a round-1 center union and its ``valid`` mask. Both
+directions go through numpy, so neither package imports the other.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_DTYPES = {np.dtype(np.float32): torch.float32,
+           np.dtype(np.int32): torch.int32,
+           np.dtype(np.bool_): torch.bool}
+
+
+def state_from_jax(arrays: dict[str, np.ndarray], device) -> dict[str, torch.Tensor]:
+    """The JAX package's arrays, read out as numpy, as the port's tensors on
+    ``device``. float32, int32 and bool map exactly; any other dtype
+    raises rather than being converted silently."""
+    out = {}
+    for name, a in arrays.items():
+        a = np.asarray(a)
+        if a.dtype not in _DTYPES:
+            raise TypeError(f"{name}: dtype {a.dtype} has no exact "
+                            "counterpart (expected float32, int32 or bool)")
+        out[name] = torch.from_numpy(np.array(a)).to(device)
+    return out
+
+
+def result_to_numpy(result):
+    """A port result (a tensor, or a NamedTuple such as ``MRGResult``) as
+    numpy: tensors become arrays, a NamedTuple a dict of its fields; other
+    values (``rounds``, ``None``) pass through."""
+    if isinstance(result, torch.Tensor):
+        return result.detach().cpu().numpy()
+    if isinstance(result, tuple) and hasattr(result, "_fields"):
+        return {f: result_to_numpy(getattr(result, f)) for f in result._fields}
+    return result

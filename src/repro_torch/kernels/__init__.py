@@ -1,0 +1,15 @@
+"""Hand-written Hopper kernels for the k-center hot spots, with their plain
+PyTorch versions.
+
+Modules:
+  fused_argfar.py — GON step: dist + running min + arg-farthest, batched
+                    over machines (csrc/gon_step.cu)
+  assign.py       — nearest-center assignment (csrc/assign.cu)
+  _build.py       — builds csrc/*.cu with nvcc at first use, loads by ctypes
+  engine.py       — impl dispatch: kernel on CUDA, plain version on CPU
+  ops.py          — public API façade over the engine
+  ref.py          — the plain PyTorch versions (semantics contract)
+
+Importing this package builds nothing and needs no GPU.
+"""
+from . import engine, ops, ref  # noqa: F401

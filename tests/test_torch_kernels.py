@@ -1,0 +1,148 @@
+"""The port's kernel modules against the JAX package's ops, on the CPU.
+
+Inputs are made with numpy from a seed and fed to both packages. On the
+CPU the port runs its plain versions; the JAX side runs its Pallas kernels
+in interpret mode and its jnp oracle. Exact-arithmetic inputs (small
+integer coordinates: every f32 sum exact) must match bitwise, tie-breaks
+included; general float inputs match within tests/test_kernels.py's
+tolerances, with indices compared where the winner is unique by 1e-5.
+The CUDA kernels themselves run only on the card (chip_smoke.py).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch import interop
+from repro_torch.kernels import _build, engine
+from repro_torch.kernels.assign import assign_nearest_cuda
+from repro_torch.kernels.fused_argfar import fused_min_argmax_cuda
+
+_NEG = np.float32(-3.4e38)
+
+
+def _points(rng, shape, tier):
+    if tier == "exact":
+        return np.floor(rng.random(shape) * 40).astype(np.float32)
+    return rng.normal(size=shape).astype(np.float32)
+
+
+def _gon_inputs(m, per, d, tier, seed=0):
+    rng = np.random.default_rng(seed)
+    x = _points(rng, (m, per, d), tier)
+    c = _points(rng, (m, d), tier)
+    md = (np.floor(rng.uniform(0, 2000, (m, per))) if tier == "exact"
+          else rng.uniform(0.5, 20, (m, per))).astype(np.float32)
+    md[:, ::5] = _NEG          # masked / padded rows
+    md[-1, :] = _NEG           # a machine with no valid row at all
+    return x, c, md
+
+
+@pytest.mark.parametrize("jimpl", ["ref", "pallas"])
+@pytest.mark.parametrize("tier,d", [("exact", 5), ("float", 2), ("float", 7)])
+def test_gon_step_matches_jax_per_machine(jimpl, tier, d):
+    m, per = 4, 300
+    x, c, md = _gon_inputs(m, per, d, tier)
+    st = interop.state_from_jax({"x": x, "c": c, "md": md}, "cpu")
+    new_md, far_v, far_i = engine.fused_min_argmax(st["x"], st["c"], st["md"],
+                                                   impl="ref")
+    assert new_md.data_ptr() == st["md"].data_ptr()     # in place
+    assert far_i.dtype == torch.int32 and far_v.shape == (m,)
+    for b in range(m):
+        jm, jv, ji = jops.fused_min_argmax(x[b], c[b], md[b], impl=jimpl,
+                                           bn=64)
+        jm = np.asarray(jm)
+        # at d = 2 the direct form rounds the same in torch and jnp; the
+        # Pallas kernel, compiled, may contract it into an FMA
+        if tier == "exact" or (d == 2 and jimpl == "ref"):
+            np.testing.assert_array_equal(new_md[b].numpy(), jm)
+            assert int(far_i[b]) == int(ji)
+            assert far_v[b].numpy() == np.float32(jv)
+        else:
+            np.testing.assert_allclose(new_md[b].numpy(), jm, rtol=1e-5)
+            np.testing.assert_allclose(float(far_v[b]), float(jv), rtol=1e-5)
+            top = np.sort(jm)[-2:]
+            if top[1] - top[0] > 1e-5 * abs(top[1]):
+                assert int(far_i[b]) == int(ji)
+        # masked rows stay at the sentinel and win only an all-masked machine
+        assert (new_md[b, ::5].numpy() == _NEG).all()
+        if b < m - 1:
+            assert int(far_i[b]) % 5 != 0
+        else:
+            assert int(far_i[b]) == 0 and far_v[b].numpy() == _NEG
+
+
+@pytest.mark.parametrize("jimpl", ["ref", "pallas"])
+@pytest.mark.parametrize("tier,n,k,d", [("exact", 500, 37, 10),
+                                        ("exact", 200, 1, 2),
+                                        ("float", 500, 13, 2),
+                                        ("float", 300, 37, 6)])
+def test_assign_nearest_matches_jax(jimpl, tier, n, k, d):
+    rng = np.random.default_rng(3)
+    x = _points(rng, (n, d), tier)
+    c = _points(rng, (k, d), tier)
+    st = interop.state_from_jax({"x": x, "c": c}, "cpu")
+    idx, d2 = engine.assign_nearest(st["x"], st["c"], impl="ref")
+    assert idx.dtype == torch.int32 and d2.dtype == torch.float32
+    jidx, jd2 = jops.assign_nearest(x, c, impl=jimpl, bn=64, bm=8)
+    jidx, jd2 = np.asarray(jidx), np.asarray(jd2)
+    if tier == "exact":
+        np.testing.assert_array_equal(idx.numpy(), jidx)
+        np.testing.assert_array_equal(d2.numpy(), jd2)
+    else:
+        np.testing.assert_allclose(d2.numpy(), jd2, rtol=1e-4, atol=1e-4)
+        part = np.partition(np.asarray(jref.pairwise_dist2(x, c)), 1, axis=1)
+        unique = part[:, 1] - part[:, 0] > 1e-5
+        np.testing.assert_array_equal(idx.numpy()[unique], jidx[unique])
+
+
+def test_dispatch_auto_ref_kernel_on_cpu():
+    x, c, md = _gon_inputs(2, 40, 3, "exact")
+    xt, ct = torch.from_numpy(x), torch.from_numpy(c)
+    before = (fused_min_argmax_cuda.launches, assign_nearest_cuda.launches)
+    a = engine.fused_min_argmax(xt, ct, torch.from_numpy(md.copy()))
+    b = engine.fused_min_argmax(xt, ct, torch.from_numpy(md.copy()),
+                                impl="ref")
+    for p, q in zip(a, b):
+        assert torch.equal(p, q)
+    ia, da = engine.assign_nearest(xt[0], ct)
+    ib, db = engine.assign_nearest(xt[0], ct, impl="ref")
+    assert torch.equal(ia, ib) and torch.equal(da, db)
+    # the plain route never counts as a kernel launch
+    assert (fused_min_argmax_cuda.launches,
+            assign_nearest_cuda.launches) == before
+    # the kernel route takes no CPU tensor, and no impl is guessed
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        engine.fused_min_argmax(xt, ct, torch.from_numpy(md.copy()),
+                                impl="kernel")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        engine.assign_nearest(xt[0], ct, impl="kernel")
+    with pytest.raises(ValueError, match="unknown impl"):
+        engine.assign_nearest(xt[0], ct, impl="pallas")
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "DEFAULT_NVCC", tmp_path / "nvcc")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    assert not (tmp_path / "build").exists()
+    # each source's library name follows its content
+    names = {_build.library_path(s).name for s in _build.SOURCES}
+    assert len(names) == len(_build.SOURCES)
+
+
+def test_interop_maps_dtypes_exactly():
+    arrays = {"points": np.ones((3, 2), np.float32),
+              "indices": np.arange(3, dtype=np.int32),
+              "valid": np.array([True, False, True])}
+    st = interop.state_from_jax(arrays, "cpu")
+    assert [st[k].dtype for k in arrays] == [torch.float32, torch.int32,
+                                             torch.bool]
+    for k in arrays:
+        np.testing.assert_array_equal(st[k].numpy(), arrays[k])
+    with pytest.raises(TypeError, match="float64"):
+        interop.state_from_jax({"x": np.ones(2)}, "cpu")
