@@ -1,23 +1,36 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of MRG (paper Algorithm 1) on one GPU.
+"""Drive the PyTorch/CUDA port of MRG (paper Algorithm 1) and coreset
+selection on one GPU, in memory and out of core.
 
     python3 chip_smoke.py        # from the root of a checkout, one Hopper card
 
 Phases, each of which raises on failure (nothing is caught):
-  1. build  — compile every CUDA kernel of the path from src/repro_torch/
-              kernels/csrc with nvcc, one process per source, in parallel;
+  1. build  — compile every CUDA kernel from src/repro_torch/kernels/csrc
+              with nvcc, one process per source, in parallel;
   2. kernels — each kernel against its plain PyTorch version on the card at
-              the path's shapes: bitwise on exact-arithmetic inputs (integer
+              its path's shapes: bitwise on exact-arithmetic inputs (integer
               coordinates), within tolerance on float inputs; times from
               CUDA events with the device queue backed up, so they are
-              device times and not host enqueue times;
-  3. mrg    — ``repro_torch.core.mrg`` at paper scale (UNIF/GAU/UNB at
-              n = 1e6, kddlike, pokerlike) with impl="auto": launch counts
-              (reset just before each run, read just after), synchronising
-              calls reported by torch.cuda.set_sync_debug_mode, wall time,
-              and agreement with the same call at impl="ref" on the card and,
-              on a small input, with the CPU;
-  4. a profile of one mrg run (device busy share, time by kernel).
+              device times and not host enqueue times. 2a GON step, 2b
+              assign (in-memory path); 2c filter, 2d streamed assign, 2e
+              per-center argmin (streamed path, at the super-shards that
+              HostStreamExecutor(memory_budget=...) resolves); 2f the
+              sources' pinned upload ring against a lagging consumer;
+  3. mrg    — ``repro_torch.core.mrg`` in memory at paper scale (UNIF/GAU/
+              UNB at n = 1e6, kddlike, pokerlike) with impl="auto": launch
+              counts (reset just before each run, read just after),
+              synchronising calls reported by torch.cuda.set_sync_debug_mode,
+              wall time, and agreement with the same call at impl="ref" on
+              the card and, on a small input, with the CPU;
+  4. a profile of one in-memory mrg run (device busy share, time by kernel);
+  5. the streamed path — ``mrg`` and ``select_coreset`` over point sources
+              on HostStreamExecutor (a 1e7-point generator source, 608 MB of
+              host points, on-disk shards), each against impl="ref" on the
+              card, with launch counts, synchronising calls, blocks
+              streamed, wall time and the peak device memory against the
+              stated budget; the streamed radius against the in-memory one
+              (bitwise), and a small exact input against the CPU;
+  6. a profile of one streamed mrg run (kernels against the ring's copies).
 
 Prints the card's name and power limit, one JSON line describing every
 kernel, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -30,6 +43,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -51,6 +65,23 @@ MRG_CONFIGS = [("unif", 1_000_000, 2, 25), ("unif", 1_000_000, 2, 100),
                ("unb", 1_000_000, 2, 25), ("unb", 1_000_000, 2, 100),
                ("kddlike", 400_000, 38, 25), ("pokerlike", 25_010, 10, 25)]
 PROFILE_CONFIGS = [("unif", 1_000_000, 2, 25), ("kddlike", 400_000, 38, 25)]
+
+# The streamed path's shapes: the super-shards that HostStreamExecutor(
+# memory_budget=...) resolves — 1,864,135 rows for unif n = 1e7, d = 2 at
+# 64 MiB; 573,580 rows for kddlike n = 4e6, d = 38 at 256 MiB — with the
+# path's k. Filter rank 1 is the covering-radius fold (no ds, no mask),
+# rank 17 EIM's form (phi * ln n at n = 1e7, with ds and an H mask).
+SHARDS = [(1_864_135, 2, "unif"), (573_580, 38, "kddlike")]
+FILTER_SHAPES = [(n, k, d, rank, gen) for n, d, gen in SHARDS
+                 for k in (25, 100) for rank in (1, 17)]
+STREAM_ASSIGN_SHAPES = [(1_864_135, 25, 2, "unif"), (1_864_135, 100, 2, "unif"),
+                        (573_580, 100, 38, "kddlike")]
+ARGMIN_SHAPES = STREAM_ASSIGN_SHAPES
+MiB = 1 << 20
+# Device memory a streamed run may take beyond its memory_budget: the
+# center union (added per run) plus this slack for the allocator's rounding
+# of each live allocation (under 1 MiB each) and the kernels' small carries.
+PEAK_SLACK = 16 * MiB
 
 
 def check(cond: bool, msg: str) -> None:
@@ -133,51 +164,187 @@ def phase_gon_step(torch, engine, P, rng, results):
                                 bound_by=b_by, library_ms=None))
 
 
-def phase_assign(torch, engine, P, rng, results):
-    print("== phase 2b: assign (assign.cu) against its plain version", flush=True)
-    for n, k, d, gen in ASSIGN_SHAPES:
+def phase_assign(torch, P, rng, results, name, op, shapes, title, seed):
+    """Assign-shaped kernels — ``op(x, c, impl=...) -> (idx, d2)`` — against
+    their plain versions: bitwise on integer inputs; on floats d2 within
+    tolerance and the index equal where the nearest center is unique."""
+    print(title, flush=True)
+    from repro_torch.kernels import ref
+    for n, k, d, gen in shapes:
         for tier in ("exact", "float"):
             x = (exact_points(rng, (n, d)) if tier == "exact"
-                 else P.GENERATORS[gen](n, d=d, seed=4))
+                 else P.GENERATORS[gen](n, d=d, seed=seed))
             xt = torch.from_numpy(x).cuda()
             ct = xt[torch.from_numpy(rng.choice(n, k, replace=False)).cuda()]
-            got = engine.assign_nearest(xt, ct, impl="kernel")
-            want = engine.assign_nearest(xt, ct, impl="ref")
+            got = op(xt, ct, impl="kernel")
+            want = op(xt, ct, impl="ref")
             torch.cuda.synchronize()
             err = (got[1] - want[1]).abs().max().item()
             note = ""
             if tier == "exact":
                 check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-                      f"assign n={n} k={k} d={d} exact tier: not bitwise equal")
+                      f"{name} n={n} k={k} d={d} exact tier: not bitwise equal")
             else:
                 # rtol applies to |x|^2 + |c|^2, the terms that cancel: the
                 # clamped decomposition's rounding error scales with them, so
                 # near a center d2 carries ~eps·|x|^2 in either version
-                scale = (xt * xt).sum(1) + (ct * ct).sum(1)[want[0].long()]
-                tol = ASSIGN_TOL["atol"] + ASSIGN_TOL["rtol"] * scale
+                tol = dist2_tol(xt, ct[want[0].long()])
                 check(bool(((got[1] - want[1]).abs() <= tol).all()),
-                      f"assign n={n} k={k} d={d}: d2 beyond tolerance ({err})")
+                      f"{name} n={n} k={k} d={d}: d2 beyond tolerance ({err})")
                 strict = int((~torch.isclose(got[1], want[1], **ASSIGN_TOL)).sum())
-                two = torch.topk(engine.ref.pairwise_dist2(xt, ct), 2, dim=1,
+                two = torch.topk(ref.pairwise_dist2(xt, ct), 2, dim=1,
                                  largest=False).values
                 unique = (two[:, 1] - two[:, 0]) > 2 * tol
                 check(torch.equal(got[0][unique], want[0][unique]),
-                      f"assign n={n} k={k} d={d}: index differs where unique")
+                      f"{name} n={n} k={k} d={d}: index differs where unique")
                 note = (f" rows_beyond_rtol_atol_1e-4_of_d2={strict}"
                         f" rows_index_compared={int(unique.sum())}")
-            ms = device_ms(torch, lambda: engine.assign_nearest(xt, ct, impl="kernel"))
-            plain = device_ms(torch, lambda: engine.assign_nearest(xt, ct, impl="ref"))
+            ms = device_ms(torch, lambda: op(xt, ct, impl="kernel"))
+            plain = device_ms(torch, lambda: op(xt, ct, impl="ref"))
             lib = device_ms(torch, lambda: torch.cdist(xt, ct).min(1))
             nbytes = 4 * (n * d + k * d + 2 * n)
             b_ms, b_by = bound(nbytes, n * k * (2 * d + 5) + 2 * d * (n + k))
-            print(f"assign n={n} k={k} d={d} {tier}: ok max_abs_err={err:.3g} "
+            print(f"{name} n={n} k={k} d={d} {tier}: ok max_abs_err={err:.3g} "
                   f"kernel_ms={ms:.5f} plain_ms={plain:.5f} library_ms={lib:.5f} "
                   f"(torch.cdist(x, c).min(1)) bound_ms={b_ms:.5f} ({b_by}){note}",
                   flush=True)
-            results.append(dict(kernel="assign", shape=(n, k, d, gen),
+            results.append(dict(kernel=name, shape=(n, k, d, gen),
                                 tier=tier, err=err,
                                 ms=ms, plain_ms=plain, bound_ms=b_ms,
                                 bound_by=b_by, library_ms=lib))
+
+
+def dist2_tol(x, c):
+    """Per-pair tolerance of a clamped d2 on float inputs, for the rows of
+    ``x`` against the matching rows of ``c`` (or all of ``c``'s, by their
+    largest norm): atol + rtol times |x|^2 + |c|^2, the terms that cancel
+    (rounding in either version scales with them)."""
+    cn = (c * c).sum(1)
+    scale = (x * x).sum(1) + (cn if c.shape[0] == x.shape[0] else cn.max())
+    return ASSIGN_TOL["atol"] + ASSIGN_TOL["rtol"] * scale
+
+
+def shard_points(P, rng, n, d, gen, tier):
+    if tier == "exact":
+        return exact_points(rng, (n, d))
+    return P.GENERATORS[gen](n, d=d, seed=5)
+
+
+def phase_filter(torch, engine, P, rng, results):
+    print("== phase 2c: filter (fused_filter.cu) against its plain version", flush=True)
+    for n, k, d, rank, gen in FILTER_SHAPES:
+        for tier in ("exact", "float"):
+            xt = torch.from_numpy(shard_points(P, rng, n, d, gen, tier)).cuda()
+            ct = xt[torch.from_numpy(rng.choice(n, k, replace=False)).cuda()]
+            eim = rank > 1      # EIM's form carries ds and the H mask
+            ds = (torch.from_numpy(np.floor(rng.random(n) * 5000).astype(np.float32)).cuda()
+                  if eim else None)
+            hm = torch.from_numpy(rng.random(n) < 0.7).cuda() if eim else None
+
+            def run(impl, ds_in):
+                return engine.fused_filter(xt, ct, ds_in, hm, rank=rank, impl=impl)
+
+            got = run("kernel", None if ds is None else ds.clone())
+            want = run("ref", None if ds is None else ds.clone())
+            top_k = [engine.merge_top_k(engine.top_k_init(rank), r[1], rank)
+                     for r in (got, want)]
+            torch.cuda.synchronize()
+            err = (got[1] - want[1]).abs().max().item()
+            if eim:
+                err = max(err, (got[0] - want[0]).abs().max().item())
+            if tier == "exact":
+                check(torch.equal(got[1], want[1])
+                      and (not eim or torch.equal(got[0], want[0])),
+                      f"filter n={n} k={k} d={d} rank={rank} exact tier: not bitwise")
+            else:
+                check(torch.allclose(top_k[0], top_k[1], rtol=1e-4, atol=1e-4),
+                      f"filter n={n} k={k} d={d} rank={rank}: merged top beyond rtol 1e-4")
+                if eim:
+                    tol = dist2_tol(xt, ct)
+                    check(bool(((got[0] - want[0]).abs() <= tol).all()),
+                          f"filter n={n} k={k} d={d}: ds beyond tolerance ({err})")
+            scratch = None if ds is None else ds.clone()
+            ms = device_ms(torch, lambda: engine.fused_filter(
+                xt, ct, scratch, hm, rank=rank, impl="kernel"))
+            plain = device_ms(torch, lambda: engine.fused_filter(
+                xt, ct, scratch, hm, rank=rank, impl="ref"), reps=5)
+            ntiles = -(-n // engine.ref.FILTER_TILE_ROWS)
+            nbytes = 4 * (n * d + k * d + ntiles * rank) + (9 * n if eim else 0)
+            b_ms, b_by = bound(nbytes, n * k * (2 * d + 5) + 2 * d * (n + k))
+            print(f"filter n={n} k={k} d={d} rank={rank} {'eim' if eim else 'fold'} "
+                  f"{tier}: ok max_abs_err={err:.3g} kernel_ms={ms:.5f} "
+                  f"plain_ms={plain:.5f} bound_ms={b_ms:.5f} ({b_by})", flush=True)
+            results.append(dict(kernel="fused_filter", shape=(n, k, d, rank, gen),
+                                tier=tier, err=err, ms=ms, plain_ms=plain,
+                                bound_ms=b_ms, bound_by=b_by, library_ms=None))
+
+
+def phase_argmin(torch, engine, P, rng, results):
+    print("== phase 2e: per-center argmin (argmin_rows.cu) against its plain "
+          "version", flush=True)
+    from repro_torch.kernels.fused_stream import argmin_carry, fused_argmin_cuda, unpack_argmin
+    for n, m, d, gen in ARGMIN_SHAPES:
+        for tier in ("exact", "float"):
+            xt = torch.from_numpy(shard_points(P, rng, n, d, gen, tier)).cuda()
+            ct = xt[torch.from_numpy(rng.choice(n, m, replace=False)).cuda()]
+            if tier == "exact":     # exact ties: a center's duplicates further on
+                xt[n - 1] = ct[0]
+                xt[n // 2] = ct[1]
+            got = engine.fused_argmin(xt, ct, impl="kernel")
+            want = engine.fused_argmin(xt, ct, impl="ref")
+            # the carry across two blocks with a row offset equals one pass
+            h = n // 3
+            carry = argmin_carry(m, xt.device)
+            fused_argmin_cuda(xt[:h], ct, carry, 0)
+            fused_argmin_cuda(xt[h:], ct, carry, h)
+            split = unpack_argmin(carry)
+            torch.cuda.synchronize()
+            err = (got[0] - want[0]).abs().max().item()
+            check(torch.equal(split[0], got[0]) and torch.equal(split[1], got[1]),
+                  f"argmin n={n} m={m} d={d} {tier}: two blocks differ from one pass")
+            if tier == "exact":
+                check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                      f"argmin n={n} m={m} d={d} exact tier: not bitwise")
+            else:
+                two = torch.topk(engine.ref.pairwise_dist2(ct, xt), 2, dim=1,
+                                 largest=False).values
+                tol = dist2_tol(ct, xt[want[1].long()])
+                check(bool(((got[0] - want[0]).abs() <= tol).all()),
+                      f"argmin n={n} m={m} d={d}: d2 beyond tolerance ({err})")
+                unique = (two[:, 1] - two[:, 0]) > 2 * tol
+                check(torch.equal(got[1][unique], want[1][unique]),
+                      f"argmin n={n} m={m} d={d}: row differs where unique")
+            ms = device_ms(torch, lambda: engine.fused_argmin(xt, ct, impl="kernel"))
+            plain = device_ms(torch, lambda: engine.fused_argmin(xt, ct, impl="ref"),
+                              reps=5)
+            lib = device_ms(torch, lambda: torch.cdist(ct, xt).min(1), reps=5)
+            nbytes = 4 * (n * d + m * d) + 16 * m
+            b_ms, b_by = bound(nbytes, n * m * (2 * d + 5) + 2 * d * (n + m))
+            print(f"argmin n={n} m={m} d={d} {tier}: ok max_abs_err={err:.3g} "
+                  f"kernel_ms={ms:.5f} plain_ms={plain:.5f} library_ms={lib:.5f} "
+                  f"(torch.cdist(c, x).min(1)) bound_ms={b_ms:.5f} ({b_by})", flush=True)
+            results.append(dict(kernel="argmin_rows", shape=(n, m, d, gen),
+                                tier=tier, err=err, ms=ms, plain_ms=plain,
+                                bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+
+
+def phase_ring(torch, P):
+    print("== phase 2f: pinned upload ring against a lagging consumer", flush=True)
+    from repro_torch.data.source import HostSource
+    x = P.unif(1_000_000, d=3, seed=8)
+    want = torch.from_numpy(x).cuda()
+    for prefetch in (1, 2, 4):
+        for rows in (65_536, 333_333):
+            copies = []
+            for blk in HostSource(x).blocks(rows, prefetch=prefetch):
+                torch.cuda._sleep(1_000_000)     # the consumer lags the copies
+                copies.append(blk.clone())
+            got = torch.cat(copies)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"ring prefetch={prefetch} rows={rows}: blocks differ from the host rows")
+            print(f"ring prefetch={prefetch} rows={rows} blocks={len(copies)}: "
+                  "every block equals its host rows", flush=True)
 
 
 def sync_warnings(caught):
@@ -293,6 +460,240 @@ def phase_profile(torch, mrg, P, gen, n, d, k):
         print(f"  {ms:9.4f} ms  {count:6d}x  {name[:90]}", flush=True)
 
 
+def counted_run(torch, fn, counters):
+    """``fn()`` once with every launch counter and the upload count at 0
+    just before and read just after, synchronising calls recorded, and the
+    peak device memory above what was allocated before. Returns
+    ``(result, launches, syncs, blocks uploaded, peak bytes)``."""
+    from repro_torch.data.source import stream_device
+    torch.cuda.synchronize()
+    for fn_ in counters.values():
+        fn_.launches = 0
+    stream_device.uploads = 0
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        res = fn()
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counters.items()}
+    return (res, launches, sync_warnings(caught), stream_device.uploads,
+            torch.cuda.max_memory_allocated() - base)
+
+
+def wall_ms(torch, fn, runs: int = 2):
+    walls = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def near_tie_rows(torch, engine, src, centers, rows):
+    """Rows whose two nearest centers lie within twice the d2 tolerance of
+    each other (plain version): a rounding difference may move them."""
+    ties = 0
+    for blk in src.blocks(rows):
+        two = torch.topk(engine.ref.pairwise_dist2(blk, centers), 2, dim=1,
+                         largest=False)
+        tol = dist2_tol(blk, centers[two.indices[:, 0]])
+        ties += int(((two.values[:, 1] - two.values[:, 0]) <= 2 * tol).sum())
+    return ties
+
+
+def check_coreset(torch, engine, label, src, rows, got, want):
+    """Same centers, representatives and weights as impl="ref"; where the
+    float rounding of the two versions may differ, only on near ties."""
+    check(torch.equal(got.centers, want.centers), f"{label}: centers differ from ref")
+    moved = int((got.weights - want.weights).abs().sum())
+    ties = near_tie_rows(torch, engine, src, got.centers, rows) if moved else 0
+    check(moved <= 2 * ties,
+          f"{label}: weights move {moved} rows beyond the {ties} near ties")
+    differ = (got.indices != want.indices).nonzero().flatten().tolist()
+    for j in differ:     # both rows must be equally near center j
+        pair = torch.from_numpy(src.take([int(got.indices[j]),
+                                          int(want.indices[j])])).cuda()
+        d2 = engine.ref.pairwise_dist2(pair, got.centers[j:j + 1])[:, 0]
+        tol = dist2_tol(pair, got.centers[j:j + 1].expand(2, -1))
+        check(bool((d2[0] - d2[1]).abs() <= 2 * tol.max()),
+              f"{label}: representative of center {j} differs beyond a tie")
+    return moved, ties, len(differ)
+
+
+def phase_streamed(torch, engine, P, counters):
+    print("== phase 5: the streamed path on HostStreamExecutor, impl='auto' "
+          "against impl='ref' on the card", flush=True)
+    from repro_torch.core import (HostStreamExecutor, SimExecutor, covering_radius,
+                                  gonzalez, mrg, select_coreset)
+    from repro_torch.data.source import HostSource, MemmapSource, synthetic_source
+    paths = {"mrg": ("gon_step", "fused_filter"),
+             "coreset": ("gon_step", "fused_filter", "fused_assign", "argmin_rows")}
+    totals = {name: 0 for name in counters}
+    t0 = time.perf_counter()
+    kdd = HostSource(P.kddlike(4_000_000, seed=0))       # 608 MB of host points
+    print(f"kddlike n=4e6 d=38 made on the host in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        gau = MemmapSource.save_shards(P.gau(2_000_000, seed=0), tmp,
+                                       rows_per_shard=500_000)
+        runs = [
+            ("mrg unif n=1e7 d=2 synthetic", "mrg",
+             synthetic_source("unif", 10_000_000, d=2, seed=0), 25, 64 * MiB),
+            ("mrg unif n=1e7 d=2 synthetic", "mrg",
+             synthetic_source("unif", 10_000_000, d=2, seed=0), 100, 64 * MiB),
+            ("mrg kddlike n=4e6 d=38 host", "mrg", kdd, 25, 256 * MiB),
+            ("mrg gau n=2e6 d=2 memmap 4 shards", "mrg", gau, 25, None),
+            ("select_coreset kddlike n=4e6 d=38 host", "coreset", kdd, 100,
+             256 * MiB),
+        ]
+        for label, kind, src, k, budget in runs:
+            ex = HostStreamExecutor(memory_budget=budget)
+            rows = ex.rows_for(src)
+            if kind == "mrg":
+                def fn(impl="auto"):
+                    return mrg(src, k, executor=ex, impl=impl)
+            else:
+                def fn(impl="auto"):
+                    return select_coreset(src, k, executor=ex, impl=impl)
+            fn()                                   # warm-up
+            res, launches, syncs, blocks, peak = counted_run(torch, fn, counters)
+            walls = wall_ms(torch, fn)
+            ref = fn("ref")
+            torch.cuda.synchronize()
+            label = f"{label} k={k} super-shard rows={rows}"
+            for w in syncs:
+                print(f"  sync: {str(w.message)[:120]!r} at {w.filename}:{w.lineno}",
+                      flush=True)
+            check(not syncs, f"{label}: {len(syncs)} synchronising calls")
+            for name in paths[kind]:
+                check(launches[name] > 0, f"{label}: kernel {name} never launched")
+            for name, c in launches.items():
+                totals[name] += c
+            shards = -(-src.n // rows)
+            allowed = (ex.prefetch + 1) * 4 * rows * (src.d + 1)
+            # the union of the shards' centers and its validity, twice
+            # while it is concatenated
+            allowed += 2 * shards * k * (4 * src.d + 1) + PEAK_SLACK
+            check(peak <= allowed, f"{label}: peak device memory {peak} bytes "
+                  f"above the allowed {allowed}")
+            check(tuple(res.centers.shape) == (k, src.d)
+                  and bool(torch.isfinite(res.centers).all()), f"{label}: centers")
+            r2, r2_ref = res.radius2.item(), ref.radius2.item()
+            check(np.isfinite(r2) and abs(r2 - r2_ref) <= 1e-4 * abs(r2_ref),
+                  f"{label}: radius2 {r2} vs ref {r2_ref} beyond rtol 1e-4")
+            note = ""
+            if kind == "mrg":
+                check(res.rounds == ref.rounds, f"{label}: rounds differ from ref")
+                check(torch.equal(res.centers, ref.centers),
+                      f"{label}: centers differ from ref")
+                note = f"rounds={res.rounds}"
+            else:
+                moved, ties, idiff = check_coreset(torch, engine, label, src,
+                                                   rows, res, ref)
+                note = (f"weights_sum={int(res.weights.sum())} "
+                        f"weight_rows_moved_vs_ref={moved} near_tie_rows={ties} "
+                        f"representatives_differing={idiff}")
+            print(f"{label}: ok {note} radius2={r2!r} ref_radius2={r2_ref!r} "
+                  f"wall_ms={[round(w, 3) for w in walls]} launches={launches} "
+                  f"sync_warnings={len(syncs)} blocks_streamed={blocks} "
+                  f"peak_MiB={peak / MiB:.2f} allowed_MiB={allowed / MiB:.2f} "
+                  f"budget_MiB={None if budget is None else budget / MiB}",
+                  flush=True)
+            if kind == "mrg" and src.n >= 4_000_000 and budget is not None:
+                # the streamed fold (filter) against the in-memory pass (assign)
+                x = src.materialize("cuda")
+                a = ex.radius2(src, res.centers)
+                b = SimExecutor(50).radius2(x, res.centers)
+                check(a.item() == b.item(),
+                      f"{label}: HostStreamExecutor.radius2 {a.item()!r} != "
+                      f"SimExecutor.radius2 {b.item()!r}")
+                print(f"{label}: HostStreamExecutor.radius2 == SimExecutor.radius2 "
+                      f"bitwise ({a.item()!r})", flush=True)
+                del x
+    x = P.pokerlike(3000, seed=5)
+    src = HostSource(x)
+    card, cpu = HostStreamExecutor(block_rows=1000), HostStreamExecutor(
+        block_rows=1000, device="cpu")
+    a, b = mrg(src, 12, executor=card), mrg(src, 12, executor=cpu)
+    ca, cb = (select_coreset(src, 12, executor=e) for e in (card, cpu))
+    check(torch.equal(a.centers.cpu(), b.centers) and a.radius2.item() == b.radius2.item()
+          and a.rounds == b.rounds, "streamed pokerlike mrg: card != CPU")
+    check(all(torch.equal(p.cpu(), q) for p, q in zip(ca, cb)),
+          "streamed pokerlike select_coreset: card != CPU")
+    # GON streamed over the source (no executor), its coreset and radius
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        ga = gonzalez(src, 12, block_rows=1000)
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = len(sync_warnings(caught))
+    # one wait, at the end, for the per-row distances returned on the host
+    check(syncs <= 1, f"streamed gonzalez: {syncs} synchronising calls")
+    gb = gonzalez(src, 12, block_rows=1000, device="cpu")
+    check(all(torch.equal(p.cpu(), q) for p, q in zip(ga, gb)),
+          "streamed pokerlike gonzalez: card != CPU")
+    sa = select_coreset(src, 12, block_rows=1000)
+    sb = select_coreset(src, 12, block_rows=1000, device="cpu")
+    check(all(torch.equal(p.cpu(), q) for p, q in zip(sa, sb)),
+          "streamed pokerlike select_coreset without an executor: card != CPU")
+    ra = covering_radius(src, ga.centers, block_rows=1000)
+    rb = covering_radius(src, gb.centers, block_rows=1000, device="cpu")
+    check(ra.item() == rb.item(), "streamed pokerlike covering_radius: card != CPU")
+    print("streamed mrg, select_coreset (with and without an executor), gonzalez "
+          "and covering_radius, pokerlike n=3000 k=12 block_rows=1000: card "
+          f"(kernels) == CPU (plain) bitwise; streamed gonzalez sync_warnings={syncs}",
+          flush=True)
+    return totals
+
+
+def phase_stream_profile(torch, P):
+    print("== phase 6: profile of one streamed mrg run (unif n=1e7 d=2 k=25, "
+          "64 MiB)", flush=True)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import HostStreamExecutor, mrg
+    from repro_torch.data.source import synthetic_source
+    src = synthetic_source("unif", 10_000_000, d=2, seed=0)
+    ex = HostStreamExecutor(memory_budget=64 * MiB)
+    rows = ex.rows_for(src)
+    t0 = time.perf_counter()
+    for _ in src.host_blocks(rows):
+        pass
+    host_ms = (time.perf_counter() - t0) * 1e3
+    mrg(src, 25, executor=ex)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mrg(src, 25, executor=ex)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        print("profile: no device time recorded (not measured)", flush=True)
+        return
+    copies = [e for e in events if e.name.startswith("Memcpy")]
+    kernels = [e for e in events if not e.name.startswith(("Memcpy", "Memset"))]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    copy = sum(e.time_range.elapsed_us() for e in copies) / 1e3
+    print(f"profile: wall_ms={wall:.3f} (profiler on) kernel_busy_ms={busy:.3f} "
+          f"kernels={len(kernels)} copy_ms={copy:.3f} copies={len(copies)} "
+          f"idle_share_of_wall={1 - busy / wall:.4f} "
+          f"host_block_generation_ms_per_pass={host_ms:.3f}", flush=True)
+    by_name = {}
+    for e in events:
+        ms, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    for name, (ms, count) in sorted(by_name.items(), key=lambda r: -r[1][0])[:10]:
+        print(f"  {ms:9.4f} ms  {count:6d}x  {name[:90]}", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -304,6 +705,9 @@ def main() -> int:
     from repro_torch.kernels import _build, engine
     from repro_torch.kernels.assign import assign_nearest_cuda
     from repro_torch.kernels.fused_argfar import fused_min_argmax_cuda
+    from repro_torch.kernels.fused_stream import (fused_argmin_cuda,
+                                                  fused_assign_cuda,
+                                                  fused_filter_cuda)
     check("jax" not in sys.modules, "jax was imported")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -330,26 +734,52 @@ def main() -> int:
     rng = np.random.default_rng(0)
     results = []
     phase_gon_step(torch, engine, P, rng, results)
-    phase_assign(torch, engine, P, rng, results)
+    phase_assign(torch, P, rng, results, "assign", engine.assign_nearest,
+                 ASSIGN_SHAPES, "== phase 2b: assign (assign.cu) against its "
+                 "plain version", seed=4)
+    phase_filter(torch, engine, P, rng, results)
+    phase_assign(torch, P, rng, results, "fused_assign", engine.fused_assign,
+                 STREAM_ASSIGN_SHAPES, "== phase 2d: streamed assign "
+                 "(fused_assign_cuda, assign.cu) against its plain version",
+                 seed=5)
+    phase_argmin(torch, engine, P, rng, results)
+    phase_ring(torch, P)
     counters = {"gon_step": fused_min_argmax_cuda, "assign": assign_nearest_cuda}
     totals = phase_mrg(torch, mrg, counters, P)
     phase_small_vs_cpu(torch, mrg, P)
     for gen, n, d, k in PROFILE_CONFIGS:
         phase_profile(torch, mrg, P, gen, n, d, k)
+    counters.update(fused_filter=fused_filter_cuda, fused_assign=fused_assign_cuda,
+                    argmin_rows=fused_argmin_cuda)
+    stream_totals = phase_streamed(torch, engine, P, counters)
+    phase_stream_profile(torch, P)
 
-    # times at the main path's first shape (GON step m=50, per=20000, d=2;
-    # assign n=1e6, k=25, d=2: paper Fig. 4) on float inputs;
-    # max_abs_err over every check of the kernel
+    # times at each path's first shape on float inputs — in memory: GON step
+    # m=50, per=20000, d=2; assign n=1e6, k=25, d=2 (paper Fig. 4); streamed:
+    # the filter at the unif super-shard (k=25, rank 1), assign and argmin at
+    # the kddlike super-shard with the coreset's k=100. Launches: in memory,
+    # phase 3's mrg runs; streamed, phase 5's runs. max_abs_err over every
+    # check of the kernel.
     meta = {"gon_step": ("src/repro_torch/kernels/csrc/gon_step.cu",
                          "src/repro/kernels/fused_argfar.py:48", GON_SHAPES[0]),
             "assign": ("src/repro_torch/kernels/csrc/assign.cu",
-                       "src/repro/kernels/assign.py:52", ASSIGN_SHAPES[0])}
+                       "src/repro/kernels/assign.py:52", ASSIGN_SHAPES[0]),
+            "fused_filter": ("src/repro_torch/kernels/csrc/fused_filter.cu",
+                             "src/repro/kernels/fused_stream.py:106",
+                             FILTER_SHAPES[0]),
+            "fused_assign": ("src/repro_torch/kernels/csrc/assign.cu",
+                             "src/repro/kernels/fused_stream.py:221",
+                             STREAM_ASSIGN_SHAPES[2]),
+            "argmin_rows": ("src/repro_torch/kernels/csrc/argmin_rows.cu",
+                            "src/repro/kernels/fused_stream.py:285",
+                            ARGMIN_SHAPES[2])}
     kernels = []
     for name, (source, replaces, shape) in meta.items():
         mine = [r for r in results if r["kernel"] == name]
         main = next(r for r in mine if r["shape"] == shape and r["tier"] == "float")
+        launches = totals[name] if name in totals else stream_totals[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": totals[name],
+                        "replaces": replaces, "launches": launches,
                         "max_abs_err": max(r["err"] for r in mine),
                         "ms": main["ms"], "plain_ms": main["plain_ms"],
                         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],

@@ -1,0 +1,103 @@
+"""k-center coreset selection — the framework use of the paper (port of
+``repro.core.coreset``).
+
+Data curation by diversity: run MRG (or GON) on an embedding cloud, keep
+the k selected examples and their cluster sizes as importance weights.
+Over a host, disk or generator point source every pass streams, so the
+cloud is bounded by host RAM or disk, not by device memory.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.data.source import ArraySource, has_weights, is_source
+from repro_torch.device import as_points, resolve_device
+from repro_torch.kernels import ops
+
+from .executor import Executor
+from .gonzalez import gonzalez
+from .mrg import mrg
+
+
+class Coreset(NamedTuple):
+    indices: torch.Tensor    # (k,)  selected example indices, int32
+    centers: torch.Tensor    # (k,d) embedding-space centers
+    weights: torch.Tensor    # (k,)  cluster sizes (importance weights)
+    radius2: torch.Tensor    # ()    squared covering radius
+
+
+def select_coreset(embeddings, k: int, *, mesh=None,
+                   executor: Executor | None = None, impl: str = "auto",
+                   chunk: int | None = None, block_rows: int | None = None,
+                   memory_budget: int | None = None,
+                   device=None) -> Coreset:
+    """Pick k maximally diverse examples from ``embeddings (n, d)``.
+
+    With an ``executor``, runs MRG on it (e.g. ``HostStreamExecutor`` for
+    an out-of-core cloud); without one, runs GON (2-approximation),
+    streamed if ``embeddings`` is a host, disk or generator
+    ``PointSource``. The reverse passes — cluster sizes and each center's
+    example index — stream too for such a source, and inherit the
+    executor's ``block_rows``/``memory_budget`` unless given. Cluster sizes
+    are counted in int32 and returned as float32 (exact below 2^24).
+
+    ``device=None`` means the executor's device, else ``"cuda"``. ``mesh``
+    (``MeshExecutor``) and ``chunk`` are not ported yet and raise.
+
+    >>> import numpy as np
+    >>> emb = np.random.default_rng(0).normal(size=(100, 8)).astype(np.float32)
+    >>> cs = select_coreset(emb, 10, device="cpu")
+    >>> tuple(cs.indices.shape), tuple(cs.centers.shape)
+    ((10,), (10, 8))
+    >>> int(cs.weights.sum())      # every example lands in one cluster
+    100
+    """
+    if mesh is not None:
+        raise NotImplementedError("mesh= (MeshExecutor) is not ported yet")
+    if chunk is not None:
+        raise NotImplementedError("chunk (row-chunked passes) is not ported yet")
+    if executor is not None:
+        if device is not None:
+            raise ValueError("pass device= to the executor, not to "
+                             "select_coreset()")
+        dev = executor.device
+    else:
+        dev = resolve_device(device)
+    if is_source(embeddings):
+        src = embeddings
+        streamed = not isinstance(src, ArraySource)
+    else:
+        # raw arrays (numpy included) stay in memory: only an explicit
+        # PointSource opts into streaming
+        src = ArraySource(embeddings, device=dev)
+        streamed = False
+    if has_weights(src):
+        raise NotImplementedError("weighted sources are not ported yet")
+    if block_rows is None and memory_budget is None and executor is not None:
+        block_rows = getattr(executor, "block_rows", None)
+        memory_budget = getattr(executor, "memory_budget", None)
+    if executor is not None:
+        res = mrg(src, k, executor=executor, impl=impl)
+    else:
+        res = gonzalez(src, k, impl=impl, block_rows=block_rows,
+                       memory_budget=memory_budget, device=dev)
+    centers, r2 = res.centers, res.radius2
+    # int32 counts are exact (n < 2^31); one int32 per row is the block's
+    # share of the residency model's per-row carry
+    counts = torch.zeros((k,), dtype=torch.int32, device=dev)
+    if streamed:
+        for idx, _ in ops.assign_nearest_source(
+                src, centers, impl=impl, block_rows=block_rows,
+                memory_budget=memory_budget, device=dev):
+            counts.index_add_(0, idx, torch.ones_like(idx))
+        cidx = ops.argmin_dist2_over_source(
+            src, centers, impl=impl, block_rows=block_rows,
+            memory_budget=memory_budget, device=dev)
+    else:
+        emb = as_points(src, dev)
+        idx, _ = ops.assign_nearest(emb, centers, impl=impl)
+        counts.index_add_(0, idx, torch.ones_like(idx))
+        cidx = ops.argmin_dist2_over_rows(emb, centers, impl=impl)
+    return Coreset(cidx, centers, counts.to(torch.float32), r2)

@@ -1,19 +1,24 @@
 """Executors — the paper's "machines" (port of ``repro.core.executor``).
 
-This part of the port has the in-memory substrate of the paper's
-experiments, ``SimExecutor``: m simulated machines on one device. Its
-interface is the JAX package's:
+  * ``SimExecutor`` — the paper's experiments: m simulated machines on one
+    device; a point source is materialized and blocked into m shards.
+  * ``HostStreamExecutor`` — out of core: sequential super-shards streamed
+    from a point source through its pinned upload ring, under
+    ``memory_budget`` (the paper's machine capacity c, in bytes), so n is
+    bounded by host RAM or disk and not by device memory.
 
-  * ``run_blocks(fn, points)`` — round 1 [map]: the per-machine reducer
-    ``fn(points (m, per, d), mask (m, per)) -> (m, k, d)`` over all m
-    machine blocks at once (the JAX package vmaps a per-block ``fn``; here
-    the machine axis is a leading batch axis of the kernels);
+Their interface is the JAX package's:
+
+  * ``run_blocks(fn, source)`` — round 1 [map]: the per-machine reducer
+    ``fn(points (m, per, d), mask (m, per) or None) -> (m, k, d)`` over
+    the machine blocks (the JAX package vmaps a per-block ``fn``; here the
+    machine axis is a leading batch axis of the kernels);
   * ``combine(centers, valid, k, capacity)`` — rounds 2+ [reduce]: while
     the union exceeds ``capacity``, re-block and reduce again (Lemma 3),
     then the final single-machine GON;
-  * ``radius2(points, centers)`` — the squared covering radius over all
-    points;
-  * ``mrg(points, k)`` — the three in order.
+  * ``radius2(source, centers)`` — the squared covering radius over all
+    points, a streamed fold (``SimExecutor``: one in-memory pass);
+  * ``mrg(source, k)`` — the three in order.
 
 Only the plain k-center objective is ported; ``objective`` other than
 ``None`` raises. Nothing here reads a tensor back to the host: the
@@ -27,6 +32,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.data.source import as_source
 from repro_torch.device import as_points, resolve_device
 from repro_torch.kernels import engine, ops
 
@@ -38,7 +44,7 @@ BlockFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 @functools.lru_cache(maxsize=None)
 def gon_block_fn(k: int, impl: str = "auto") -> BlockFn:
     """The per-machine reducer: GON restricted to each (masked) block,
-    batched over the leading machine axis."""
+    batched over the leading machine axis (``mask=None``: every row)."""
     def fn(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         return _gonzalez_device(points, k, mask=mask, impl=impl).centers
     return fn
@@ -105,12 +111,12 @@ class Executor:
 
     device: torch.device
 
-    def run_blocks(self, fn, points, *, objective=None):
-        """Round 1: map ``fn`` over the machine blocks of ``points``.
+    def run_blocks(self, fn, source, *, objective=None):
+        """Round 1: map ``fn`` over the machine blocks of ``source``.
         Returns ``(centers (M·k, d), valid (M·k,) bool)``."""
         raise NotImplementedError
 
-    def default_capacity(self, points, k: int) -> int:
+    def default_capacity(self, source, k: int) -> int:
         """The paper's machine capacity ``c`` implied by this executor's
         blocking (rows per machine, floored at 2k)."""
         return 2 * k
@@ -139,35 +145,38 @@ class Executor:
         final = _gonzalez_device(centers[None], k, mask=valid[None], impl=impl)
         return final.centers[0], extra
 
-    def radius2(self, points, centers: torch.Tensor, *, impl: str = "auto",
+    def radius2(self, source, centers: torch.Tensor, *, impl: str = "auto",
                 objective=None) -> torch.Tensor:
-        """Squared covering radius over all points. The JAX package's base
-        form is a streamed fold over a point source, which is not ported
-        yet; ``SimExecutor`` has the in-memory form."""
-        raise NotImplementedError(
-            f"{type(self).__name__}.radius2: the streamed covering-radius "
-            "fold is not ported yet")
+        """Squared covering radius over ALL source points, streamed
+        (``engine.fold_min_d2``). Returns ``max(min_d2)`` itself: a
+        ``sqrt`` → square round trip is lossy in f32, and every executor
+        returns the same exact value."""
+        _plain_only(objective)
+        return engine.fold_min_d2(source, centers, impl=impl,
+                                  device=self.device)
 
-    def mrg(self, points, k: int, *, capacity: int | None = None,
+    def mrg(self, source, k: int, *, capacity: int | None = None,
             impl: str = "auto", objective=None):
-        """Full MRG on this executor. Returns ``(centers (k, d), radius2 (),
+        """Full MRG on this executor over ``source`` (anything
+        ``as_source`` takes). Returns ``(centers (k, d), radius2 (),
         rounds)``."""
         _plain_only(objective)
-        x = as_points(points, self.device)
+        source = as_source(source)
         if capacity is None:
-            capacity = self.default_capacity(x, k)
+            capacity = self.default_capacity(source, k)
         # Fail on an infeasible capacity *before* the round-1 pass over all
         # of n (warn=False: combine's own check owns the §3.3 warning).
         check_combine_capacity(k, capacity, warn=False)
-        centers, valid = self.run_blocks(gon_block_fn(k, impl), x)
+        centers, valid = self.run_blocks(gon_block_fn(k, impl), source)
         centers, extra = self.combine(centers, valid, k, capacity, impl=impl)
-        return centers, self.radius2(x, centers, impl=impl), 2 + extra
+        return centers, self.radius2(source, centers, impl=impl), 2 + extra
 
 
 class SimExecutor(Executor):
     """The paper's experimental setup (§7.1): ``m`` simulated machines on
-    one device — the points are blocked into m shards, and GON runs on all
-    shards at once, the machines a leading batch axis of the kernels.
+    one device — the points (an array, or any source, materialized) are
+    blocked into m shards, and GON runs on all shards at once, the machines
+    a leading batch axis of the kernels.
 
     ``device=None`` means ``"cuda"`` and raises where there is none."""
 
@@ -177,18 +186,75 @@ class SimExecutor(Executor):
         self.m = m
         self.device = resolve_device(device)
 
-    def run_blocks(self, fn, points, *, objective=None):
+    def run_blocks(self, fn, source, *, objective=None):
         _plain_only(objective)
-        blocked, mask = _block(as_points(points, self.device), self.m)
+        blocked, mask = _block(as_points(source, self.device), self.m)
         return _run_round(blocked, mask, fn)
 
-    def default_capacity(self, points, k: int) -> int:
-        return max(-(-points.shape[0] // self.m), 2 * k)
+    def default_capacity(self, source, k: int) -> int:
+        return max(-(-source.n // self.m), 2 * k)
 
-    def radius2(self, points, centers, *, impl="auto", objective=None):
+    def radius2(self, source, centers, *, impl="auto", objective=None):
         # One pass of the nearest-center kernel over all n points; returns
         # the squared max directly (a sqrt -> square round trip is lossy).
         _plain_only(objective)
-        _, d2 = ops.assign_nearest(as_points(points, self.device), centers,
+        _, d2 = ops.assign_nearest(as_points(source, self.device), centers,
                                    impl=impl)
         return d2.max()
+
+
+class HostStreamExecutor(Executor):
+    """Out-of-core machines: sequential super-shards streamed from the
+    source.
+
+    Round 1 is a host-driven fold: each super-shard is uploaded through
+    the source's pinned ring, reduced to k centers by GON (the port's
+    batched GON as a one-machine batch), and released; at most
+    ``1 + prefetch`` shards and the accumulated union are on the device.
+    ``memory_budget`` (bytes) bounds them through the engine's
+    ``(1+prefetch)·4·rows·(d+1)`` model — the paper's machine capacity
+    ``c``; ``block_rows`` sets the shard size directly. The ragged last
+    shard is passed short, without padding: its masked and unmasked GON
+    pick the same centers (the first center is row 0 either way, and
+    padded rows could never be selected).
+
+    ``device=None`` means ``"cuda"`` and raises where there is none."""
+
+    def __init__(self, block_rows: int | None = None,
+                 memory_budget: int | None = None,
+                 prefetch: int = engine.DEFAULT_PREFETCH, *, device=None):
+        if prefetch < 1:
+            raise ValueError(f"prefetch must be >= 1, got {prefetch}")
+        self.block_rows = block_rows
+        self.memory_budget = memory_budget
+        self.prefetch = prefetch
+        self.device = resolve_device(device)
+
+    def rows_for(self, source) -> int:
+        return engine.resolve_block_rows(source.n, source.d,
+                                         block_rows=self.block_rows,
+                                         memory_budget=self.memory_budget,
+                                         prefetch=self.prefetch)
+
+    def _blocks(self, source, rows: int):
+        return engine._source_blocks(source, rows, self.prefetch, self.device)
+
+    def run_blocks(self, fn, source, *, objective=None):
+        _plain_only(objective)
+        source = as_source(source)
+        # each block's centers are a fresh tensor (GON gathers them), so
+        # nothing outlives the ring slot it came from
+        outs = [fn(blk[None], None)[0]
+                for blk in self._blocks(source, self.rows_for(source))]
+        centers = torch.cat(outs)                            # (M*k, d)
+        return centers, torch.ones((centers.shape[0],), dtype=torch.bool,
+                                   device=centers.device)
+
+    def default_capacity(self, source, k: int) -> int:
+        return max(self.rows_for(source), 2 * k)
+
+    def radius2(self, source, centers, *, impl="auto", objective=None):
+        _plain_only(objective)
+        return engine.fold_min_d2(source, centers, impl=impl,
+                                  block_rows=self.rows_for(source),
+                                  prefetch=self.prefetch, device=self.device)

@@ -1,9 +1,11 @@
 """Gonzalez's greedy 2-approximation for k-center (paper §3.1, "GON").
 
-Port of ``repro.core.gonzalez`` (in-memory form). Pick the first (valid)
-point, then repeatedly the point farthest from the chosen set, k times.
-Each iteration is one fused pass over the points: the GON-step kernel
+Port of ``repro.core.gonzalez``. Pick the first (valid) point, then
+repeatedly the point farthest from the chosen set, k times. Each iteration
+is one fused pass over the points: the GON-step kernel
 (``kernels/fused_argfar.py``) on the card, its plain version on the CPU.
+Over a host, disk or generator point source each pass streams the source
+block by block (``_gonzalez_source``).
 
 The JAX package maps GON over machine blocks with ``jax.vmap``; a
 hand-written kernel cannot be vmapped, so ``_gonzalez_device`` runs m
@@ -19,8 +21,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.data.source import ArraySource, is_source
 from repro_torch.device import as_points, resolve_device
-from repro_torch.kernels import ops
+from repro_torch.kernels import engine, ops
 
 _NEG = np.float32(-3.4e38)  # sentinel: masked-out points can never be farthest
 _BIG = np.float32(3.4e38)   # initial md of valid rows: min(_BIG, d2) == d2
@@ -31,12 +34,21 @@ class GonzalezResult(NamedTuple):
     indices: torch.Tensor   # (k,)  int32 indices into the input
     radius2: torch.Tensor   # ()    squared covering radius over valid points
     min_d2: torch.Tensor    # (n,)  final per-point squared distance to centers
+                            #       (on the host for a streamed source)
 
 
 def gonzalez(points, k: int, *, mask=None, first: int = 0,
              impl: str = "auto", chunk: int | None = None,
+             block_rows: int | None = None, memory_budget: int | None = None,
              device=None) -> GonzalezResult:
     """Run GON on ``points (n, d)``; optionally restricted to ``mask (n,)``.
+
+    ``points`` may be a point source: an ``ArraySource`` runs the in-memory
+    algorithm, a host, disk or generator source the streamed one, whose
+    k passes each stream the source in blocks of ``block_rows`` rows (or
+    as ``memory_budget`` bytes allow, ``engine.resolve_block_rows``); it
+    picks the same centers. ``mask`` is not supported for streamed
+    sources.
 
     With a mask, invalid points are never selected and are excluded from
     the covering radius, and the first center is the first valid point
@@ -58,6 +70,12 @@ def gonzalez(points, k: int, *, mask=None, first: int = 0,
     if chunk is not None:
         raise NotImplementedError("chunk (row-chunked passes) is not ported yet")
     dev = resolve_device(device)
+    if is_source(points) and not isinstance(points, ArraySource):
+        if mask is not None:
+            raise ValueError("mask is not supported for streamed PointSources")
+        return _gonzalez_source(points, k, first=int(first), impl=impl,
+                                block_rows=block_rows,
+                                memory_budget=memory_budget, device=dev)
     x = as_points(points, dev)
     if mask is not None:
         mask = torch.as_tensor(mask, device=dev).to(torch.bool)[None]
@@ -104,3 +122,102 @@ def _gonzalez_device(points: torch.Tensor, k: int, *, mask=None,
     # vector we hand back.
     return GonzalezResult(torch.stack(centers, 1), torch.stack(indices, 1),
                           radius2, md.clamp_min(0.0))
+
+
+def _source_row(source, idx: int, rows: int) -> np.ndarray:
+    """Row ``idx`` of a source: random access where the source offers it
+    (every built-in source does), else by streaming host blocks up to it."""
+    if not 0 <= idx < source.n:
+        raise IndexError(f"row {idx} out of range for n={source.n}")
+    if hasattr(source, "row"):
+        return np.asarray(source.row(idx), np.float32)
+    off = 0
+    for blk in ops.host_blocks_of(source, rows):
+        if idx < off + blk.shape[0]:
+            return blk[idx - off]
+        off += blk.shape[0]
+    raise IndexError(f"source exhausted before row {idx}")  # pragma: no cover
+
+
+def _gonzalez_source(source, k: int, *, first: int = 0, impl: str = "auto",
+                     block_rows: int | None = None,
+                     memory_budget: int | None = None,
+                     device=None) -> GonzalezResult:
+    """Out-of-core GON: k streamed passes over a point source.
+
+    Each pass folds the GON step over the source's blocks: the running
+    min-distance update and the search for the next center happen in the
+    same pass. The running (value, global row, coordinates) of the farthest
+    point stays on the device and takes a block's far point on strict
+    ``>``, so the earliest block keeps a tie, as the in-memory argmax does:
+    no value is read back to the host in the loop. The per-point distances
+    (n floats) live in host memory, pinned where the device is CUDA, and
+    move to and from the device with each block on the current stream, so
+    the device holds only the ring's blocks and one block's distances.
+    """
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    dev = resolve_device(device)
+    n, d = source.n, source.d
+    rows = ops.resolve_block_rows(n, d, block_rows=block_rows,
+                                  memory_budget=memory_budget)
+    md_host = torch.empty((n,), dtype=torch.float32,
+                          pin_memory=dev.type == "cuda")
+    row = torch.from_numpy(_source_row(source, first, rows))
+    if dev.type == "cuda":
+        row = row.pin_memory()      # so that the upload does not wait
+    best_row = row.to(dev, non_blocking=True)
+    best_i = torch.full((), first, dtype=torch.int64, device=dev)
+    centers, indices = [], []
+    for i in range(k):
+        c = best_row
+        centers.append(c)
+        indices.append(best_i)
+        best_v = torch.full((), float("-inf"), device=dev)
+        off = 0
+        for blk in engine._source_blocks(source, rows, None, dev):
+            nb = blk.shape[0]
+            if i == 0:   # a GON step from +BIG leaves md = d2 to the first center
+                md = torch.full((1, nb), float(_BIG), device=dev)
+            else:
+                md = md_host[off:off + nb].to(dev, non_blocking=True)[None]
+            md, v, bi = ops.fused_min_argmax(blk[None], c[None], md, impl=impl)
+            md_host[off:off + nb].copy_(md[0], non_blocking=True)
+            take = v[0] > best_v
+            best_v = torch.where(take, v[0], best_v)
+            best_i = torch.where(take, bi[0].to(torch.int64) + off, best_i)
+            # index_select, not blk[bi[0]]: a 0-d index is read on the host
+            best_row = torch.where(take, blk.index_select(0, bi)[0], best_row)
+            off += nb
+    if dev.type == "cuda":
+        # the host reads md_host below: wait for the last block's copy back
+        torch.cuda.current_stream(dev).synchronize()
+    radius2 = torch.clamp_min(best_v, 0.0)
+    return GonzalezResult(torch.stack(centers),
+                          torch.stack(indices).to(torch.int32), radius2,
+                          md_host.clamp_min(0.0))
+
+
+def covering_radius(points, centers, *, mask=None, impl: str = "auto",
+                    block_rows: int | None = None,
+                    memory_budget: int | None = None,
+                    device=None) -> torch.Tensor:
+    """Euclidean covering radius of ``centers`` over (masked) ``points``.
+
+    ``points`` may be a point source; a host, disk or generator source
+    folds the radius block by block (``ops.fold_min_d2``) so the input is
+    never whole on the device. ``mask`` is not supported for streamed
+    sources. ``device=None`` means ``"cuda"``."""
+    dev = resolve_device(device)
+    if is_source(points) and not isinstance(points, ArraySource):
+        if mask is not None:
+            raise ValueError("mask is not supported for streamed PointSources")
+        return torch.sqrt(ops.fold_min_d2(points, centers, impl=impl,
+                                          block_rows=block_rows,
+                                          memory_budget=memory_budget,
+                                          device=dev))
+    _, d2 = ops.assign_nearest(as_points(points, dev), as_points(centers, dev),
+                               impl=impl)
+    if mask is not None:
+        d2 = torch.where(torch.as_tensor(mask, device=dev), d2, 0.0)
+    return torch.sqrt(d2.max())

@@ -1,13 +1,15 @@
 """MRG — "MapReduce Gonzalez" (paper §3, Algorithm 1).
 
-Port of ``repro.core.mrg`` for in-memory inputs: round 1 runs GON on each
-of the executor's machine blocks, rounds 2+ reduce the k·m center union
-under the capacity ``c`` (Lemma 2 for 2 rounds ⇒ 4-approximation; Lemma
-3's multi-round generalization adds +2 per extra level), and the covering
-radius is one nearest-center pass over all points.
+Port of ``repro.core.mrg``: round 1 runs GON on each of the executor's
+machine blocks, rounds 2+ reduce the k·m center union under the capacity
+``c`` (Lemma 2 for 2 rounds ⇒ 4-approximation; Lemma 3's multi-round
+generalization adds +2 per extra level), and the covering radius is one
+pass over all points.
 
-Inputs are numpy arrays or tensors; point sources and the streamed
-(``chunk``) form are not ported yet and raise.
+Inputs are numpy arrays, tensors or point sources: raw arrays run in
+memory on ``SimExecutor``, a host, disk or generator source streams on
+``HostStreamExecutor``. The row-chunked (``chunk``) form is not ported yet
+and raises.
 """
 from __future__ import annotations
 
@@ -16,7 +18,10 @@ from typing import NamedTuple
 
 import torch
 
-from .executor import Executor, SimExecutor, _block, _mrg_round  # noqa: F401
+from repro_torch.data.source import ArraySource, as_source, is_source
+
+from .executor import (Executor, HostStreamExecutor, SimExecutor,  # noqa: F401
+                       _block, _mrg_round)
 
 
 class MRGResult(NamedTuple):
@@ -51,10 +56,15 @@ def plan_rounds(n: int, m: int, k: int, capacity: int) -> int:
 def mrg(points, k: int, *, executor: Executor | None = None, m: int = 50,
         capacity: int | None = None, impl: str = "auto",
         chunk: int | None = None, objective=None, device=None) -> MRGResult:
-    """Paper Algorithm 1 on ``points (n, d)``, a numpy array or a tensor.
+    """Paper Algorithm 1 on ``points (n, d)``: a numpy array, a tensor or
+    a point source.
 
-    Without an ``executor`` it runs on ``SimExecutor(m, device=device)``;
-    ``device=None`` means ``"cuda"`` and raises where there is none.
+    Without an ``executor``, raw arrays and ``ArraySource`` run on
+    ``SimExecutor(m, device=device)`` and an explicit host, disk or
+    generator source on ``HostStreamExecutor(device=device)``: only passing
+    a ``PointSource`` opts into streaming (a numpy array is wrapped in an
+    ``ArraySource``, not in the ``HostSource`` that ``as_source`` would
+    make). ``device=None`` means ``"cuda"`` and raises where there is none.
     ``capacity`` (rows; default: the machine size) triggers the multi-round
     path when the k·m center union would not fit on one machine.
 
@@ -69,11 +79,18 @@ def mrg(points, k: int, *, executor: Executor | None = None, m: int = 50,
     if objective is not None:
         raise NotImplementedError(
             "only the plain k-center objective (objective=None) is ported")
+    streamed = is_source(points) and not isinstance(points, ArraySource)
     if executor is None:
-        executor = SimExecutor(m=m, device=device)
+        executor = (HostStreamExecutor(device=device) if streamed
+                    else SimExecutor(m=m, device=device))
     elif device is not None:
         raise ValueError("pass device= to the executor, not to mrg()")
-    centers, r2, rounds = executor.mrg(points, k, capacity=capacity,
+    if streamed:
+        source = as_source(points)
+    else:
+        source = (points if isinstance(points, ArraySource)
+                  else ArraySource(points, device=executor.device))
+    centers, r2, rounds = executor.mrg(source, k, capacity=capacity,
                                        impl=impl)
     return MRGResult(centers, r2, rounds)
 

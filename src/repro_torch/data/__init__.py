@@ -1,7 +1,22 @@
-"""Point-set generators (a verbatim copy of ``repro.data.pointsets``: numpy
-Philox, so both packages draw bitwise the same inputs from a seed).
+"""Point sets and point sources.
 
-The JAX package reaches its copy through ``repro.data``, which imports jax,
-so the port keeps its own.
+  pointsets.py — the paper's generators (a verbatim copy of
+                 ``repro.data.pointsets``: numpy Philox, so both packages
+                 draw bitwise the same inputs from a seed; the JAX package
+                 reaches its copy through ``repro.data``, which imports jax)
+  source.py    — out-of-core point sources and the pinned upload ring
 """
 from .pointsets import GENERATORS, gau, kddlike, pokerlike, unb, unif  # noqa: F401
+from .source import (  # noqa: F401
+    ArraySource,
+    HostSource,
+    MemmapSource,
+    PointSource,
+    SyntheticSource,
+    as_source,
+    has_weights,
+    is_source,
+    stream_device,
+    synthetic_source,
+    weights_of,
+)

@@ -22,12 +22,17 @@ def resolve_device(device=None) -> torch.device:
 
 
 def as_points(points, device: torch.device) -> torch.Tensor:
-    """``points`` (a numpy array or a tensor) as a contiguous float32 tensor
-    on ``device``. The port holds points as float32, the kernels' type."""
-    if isinstance(points, np.ndarray):
+    """``points`` (a numpy array, a tensor or a point source) as a
+    contiguous float32 tensor on ``device``. The port holds points as
+    float32, the kernels' type. A point source is materialized whole, for
+    consumers that need random access (``SimExecutor``)."""
+    from repro_torch.data.source import is_source  # the data layer imports this module
+    if is_source(points):
+        points = points.materialize(device)
+    elif isinstance(points, np.ndarray):
         points = torch.from_numpy(np.array(points, np.float32))  # a copy
     elif not isinstance(points, torch.Tensor):
         raise TypeError(
-            f"points must be a numpy array or a torch.Tensor, got "
-            f"{type(points).__name__} (point sources are not ported yet)")
+            f"points must be a numpy array, a torch.Tensor or a point "
+            f"source, got {type(points).__name__}")
     return points.to(device=device, dtype=torch.float32).contiguous()

@@ -4,8 +4,8 @@ Each source compiles at first use, with ``nvcc -gencode
 arch=compute_90a,code=sm_90a``, into a shared library with a plain C
 interface under ``build/repro_torch_kernels/`` at the root of the checkout,
 and loads through ``ctypes``. A library's file name carries a hash of its
-source and flags, so an edited source rebuilds and a stale build is never
-loaded. ``build()`` starts one ``nvcc`` per source, all at once, so the
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds and a stale build is never loaded. ``build()`` starts one ``nvcc`` per source, all at once, so the
 sources compile in parallel.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("gon_step", "assign")
+SOURCES = ("gon_step", "assign", "fused_filter", "argmin_rows")
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -52,6 +52,8 @@ def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
     digest = hashlib.sha256()
     digest.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

@@ -19,15 +19,10 @@
 // so the earliest center wins ties, as torch.argmin does. The ragged last
 // center tile is bounded by the count, not padded with a 1e18 coordinate.
 //
-// Rounding: the norms and the epilogue use __fmul_rn/__fadd_rn/__fsub_rn, so
-// nvcc cannot contract (|x|^2 + |c|^2) - 2·dot into an FMA and the card
-// rounds them like the plain version. The dot product accumulates with fmaf
-// in j order, as an f32 GEMM does; its rounding (not its order) therefore
-// matches the plain version's matrix product. No tensor cores, so no TF32.
+// Rounding: dist2.cuh, which every nearest-center kernel of the port
+// shares, so a pair rounds the same in each of them.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "dist2.cuh"
 
 namespace {
 
@@ -39,79 +34,17 @@ assign_kernel(const float* __restrict__ x, const float* __restrict__ c, int n,
               int k, int d, int tc, int* __restrict__ idx_out,
               float* __restrict__ d2_out) {
   extern __shared__ float smem[];
-  float* sc = smem;            // (tc, d) center tile
-  float* scn = smem + tc * d;  // (tc,) their squared norms
   const int64_t row = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   const bool live = row < n;
-  const float* xr = x + row * d;
-
-  float xv[DMAX > 0 ? DMAX : 1];
-  float xn = 0.0f;
-  if (live) {
-    if constexpr (DMAX > 0) {
-#pragma unroll
-      for (int j = 0; j < DMAX; ++j) {
-        if (j < d) {
-          xv[j] = xr[j];
-          xn = __fadd_rn(xn, __fmul_rn(xv[j], xv[j]));
-        }
-      }
-    } else {
-      for (int j = 0; j < d; ++j) xn = __fadd_rn(xn, __fmul_rn(xr[j], xr[j]));
-    }
-  }
-
-  float best = CUDART_INF_F;
-  int best_i = 0;
-  for (int c0 = 0; c0 < k; c0 += tc) {
-    const int nc = min(tc, k - c0);
-    __syncthreads();  // the previous tile is consumed
-    for (int e = threadIdx.x; e < nc * d; e += kThreads) {
-      sc[e] = c[(int64_t)c0 * d + e];
-    }
-    __syncthreads();
-    for (int q = threadIdx.x; q < nc; q += kThreads) {
-      float s = 0.0f;
-      for (int j = 0; j < d; ++j) {
-        s = __fadd_rn(s, __fmul_rn(sc[q * d + j], sc[q * d + j]));
-      }
-      scn[q] = s;
-    }
-    __syncthreads();
-    if (live) {
-      for (int q = 0; q < nc; ++q) {
-        const float* cq = sc + q * d;
-        float dot = 0.0f;
-        if constexpr (DMAX > 0) {
-#pragma unroll
-          for (int j = 0; j < DMAX; ++j) {
-            if (j < d) dot = fmaf(xv[j], cq[j], dot);
-          }
-        } else {
-          for (int j = 0; j < d; ++j) dot = fmaf(xr[j], cq[j], dot);
-        }
-        const float d2 = fmaxf(
-            __fsub_rn(__fadd_rn(xn, scn[q]), __fmul_rn(2.0f, dot)), 0.0f);
-        if (d2 < best) {
-          best = d2;
-          best_i = c0 + q;
-        }
-      }
-    }
-  }
+  repro::Row<DMAX> xr;
+  if (live) xr.load(x + row * d, d);
+  float best;
+  int best_i;
+  repro::nearest_center(xr, live, c, k, d, tc, smem, best, best_i);
   if (live) {
     idx_out[row] = best_i;
     d2_out[row] = best;
   }
-}
-
-template <int DMAX>
-void launch(const float* x, const float* c, int n, int k, int d, int tc,
-            int* idx, float* d2, cudaStream_t s) {
-  const int blocks = (n + kThreads - 1) / kThreads;
-  const size_t smem = sizeof(float) * (size_t)tc * (d + 1);
-  assign_kernel<DMAX><<<blocks, kThreads, smem, s>>>(x, c, n, k, d, tc, idx,
-                                                     d2);
 }
 
 }  // namespace
@@ -135,13 +68,12 @@ int repro_assign_nearest(const void* x, const void* c, void* idx, void* d2,
   int* ip = static_cast<int*>(idx);
   float* dp = static_cast<float*>(d2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= 2) launch<2>(xp, cp, n, k, d, tc, ip, dp, s);
-  else if (d <= 4) launch<4>(xp, cp, n, k, d, tc, ip, dp, s);
-  else if (d <= 8) launch<8>(xp, cp, n, k, d, tc, ip, dp, s);
-  else if (d <= 16) launch<16>(xp, cp, n, k, d, tc, ip, dp, s);
-  else if (d <= 32) launch<32>(xp, cp, n, k, d, tc, ip, dp, s);
-  else if (d <= 64) launch<64>(xp, cp, n, k, d, tc, ip, dp, s);
-  else launch<0>(xp, cp, n, k, d, tc, ip, dp, s);
+  const int blocks = (n + kThreads - 1) / kThreads;
+  const size_t smem = sizeof(float) * (size_t)tc * (d + 1);
+  repro::dispatch_d(d, [&](auto dmax) {
+    assign_kernel<decltype(dmax)::value>
+        <<<blocks, kThreads, smem, s>>>(xp, cp, n, k, d, tc, ip, dp);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 

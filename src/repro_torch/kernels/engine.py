@@ -1,6 +1,7 @@
-"""Dispatch between the hand-written CUDA kernels and their plain versions.
+"""Dispatch between the hand-written CUDA kernels and their plain versions,
+and the streamed folds over point sources (port of ``repro.kernels.engine``).
 
-The in-memory half of ``repro.kernels.engine``. Every op takes ``impl``:
+Every op takes ``impl``:
 
   * ``"auto"``   — the CUDA kernel for a CUDA tensor, the plain PyTorch
     version for a CPU tensor;
@@ -11,19 +12,26 @@ The in-memory half of ``repro.kernels.engine``. Every op takes ``impl``:
 The kernel route needs a CUDA tensor on a device of compute capability 9.x
 (``_build.require_hopper``); it launches the kernel or raises, and never
 falls back to the plain version.
+
+The source folds (``fold_min_d2``, ``assign_nearest_source``,
+``argmin_dist2_over_source``) stream a point source in super-shards of
+``block_rows`` rows through its upload ring, so at most ``1 + prefetch``
+blocks are device-resident (``resolve_block_rows``' residency model), and
+fold each block into O(m)-sized state on the device: no per-block value is
+read back to the host.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.device import as_points, resolve_device
+
 from . import ref
 from .assign import assign_nearest_cuda
 from .fused_argfar import fused_min_argmax_cuda
-
-# The JAX package's sentinels, bitwise: +-3.4e38 as float32.
-_BIG = np.float32(3.4e38)
-_NEG = np.float32(-3.4e38)
+from .fused_stream import (argmin_carry, fused_argmin_cuda, fused_assign_cuda,
+                           fused_filter_cuda, unpack_argmin)
 
 IMPLS = ("auto", "kernel", "ref")
 
@@ -75,3 +83,201 @@ def assign_nearest(x, c, *, impl: str = "auto"):
     if _resolve(impl, x):
         return assign_nearest_cuda(x, c)
     return ref.assign_nearest(x, c)
+
+
+def argmin_dist2_over_rows(x, c, *, impl: str = "auto"):
+    """For each center row of ``c (m, d)``, the index of the nearest row of
+    ``x (n, d)``: ``assign_nearest(c, x)[0]``, first row on ties."""
+    return assign_nearest(c, x, impl=impl)[0]
+
+
+def fused_filter(x, c, ds=None, hm=None, *, rank: int, impl: str = "auto"):
+    """The streamed filter step on one block: ``(ds, tops (tiles, rank))``
+    (see ``ref.fused_filter``); ``ds`` is updated in place."""
+    if _resolve(impl, x):
+        return fused_filter_cuda(x, c, ds, hm, rank=rank)
+    return ref.fused_filter(x, c, ds, hm, rank=rank)
+
+
+def fused_assign(x, c, *, impl: str = "auto"):
+    """Nearest center of every row of a streamed block: ``(idx (n,) int32,
+    d2 (n,))`` (the streamed kernel; ``assign_nearest``'s function)."""
+    if _resolve(impl, x):
+        return fused_assign_cuda(x, c)
+    return ref.assign_nearest(x, c)
+
+
+def fused_argmin(x, c, *, impl: str = "auto"):
+    """For each center, the nearest row of one block: ``(best_d (m,),
+    best_i (m,) int32)``, first row on ties (see ``ref.fused_argmin``)."""
+    if _resolve(impl, x):
+        carry = fused_argmin_cuda(x, c, argmin_carry(c.shape[0], x.device))
+        return unpack_argmin(carry)
+    return ref.fused_argmin(x, c)
+
+
+# ---------------------------------------------------------------------------
+# streamed folds over a point source
+# ---------------------------------------------------------------------------
+
+DEFAULT_BLOCK_ROWS = 1 << 16
+# Lookahead of the sources' upload ring (repro_torch/data/source.py); at
+# the peak 1 + DEFAULT_PREFETCH blocks are device-resident.
+DEFAULT_PREFETCH = 2
+
+
+def resolve_block_rows(n: int, d: int, *, block_rows: int | None = None,
+                       memory_budget: int | None = None,
+                       default: int = DEFAULT_BLOCK_ROWS,
+                       prefetch: int = DEFAULT_PREFETCH) -> int:
+    """Super-shard size for streaming an ``(n, d)`` source.
+
+    Explicit ``block_rows`` wins (clipped to ``[1, n]``). Otherwise a
+    ``memory_budget`` in bytes is solved against the f32 residency model
+    ``(1 + prefetch) · 4·rows·(d + 1)``: the consumed block and up to
+    ``prefetch`` blocks in flight, each with one per-row carry. Falls back
+    to ``DEFAULT_BLOCK_ROWS``."""
+    if block_rows is not None:
+        if block_rows < 1:
+            raise ValueError(f"block_rows must be >= 1, got {block_rows}")
+        return min(int(block_rows), max(n, 1))
+    if prefetch < 1:
+        raise ValueError(f"prefetch must be >= 1, got {prefetch}")
+    if memory_budget is not None:
+        rows = memory_budget // (4 * (1 + prefetch) * (d + 1))
+        if rows < 1:
+            raise ValueError(
+                f"memory_budget={memory_budget} cannot hold even one "
+                f"{d}-dim row per buffer ({4 * (1 + prefetch) * (d + 1)} "
+                f"bytes/row across {1 + prefetch} ring slots)")
+        return min(int(rows), max(n, 1))
+    return min(default, max(n, 1))
+
+
+def host_blocks_of(source, rows: int):
+    """Numpy host blocks of any source: its ``host_blocks`` where it has
+    them, else its blocks on the CPU."""
+    if hasattr(source, "host_blocks"):
+        for blk in source.host_blocks(rows):
+            yield np.asarray(blk, np.float32)
+        return
+    for blk in source.blocks(rows, device="cpu"):
+        yield blk.numpy()
+
+
+def _source_blocks(source, rows: int, prefetch: int | None, device):
+    """``source.blocks(rows)`` on ``device`` through a ring ``prefetch``
+    blocks deep (``None``: the default depth)."""
+    return source.blocks(rows, prefetch=prefetch or DEFAULT_PREFETCH,
+                         device=device)
+
+
+def top_k_init(k: int, device=None) -> torch.Tensor:
+    """Identity carry of ``merge_top_k``: k slots at -3.4e38."""
+    return torch.full((k,), ref.NEG, dtype=torch.float32,
+                      device=resolve_device(device))
+
+
+def merge_top_k(carry: torch.Tensor, vals: torch.Tensor, k: int):
+    """Merge a block's values into a running descending top-k. Top-k
+    values of a multiset do not depend on the blocking. ``carry`` holds k
+    values, so the merged set never has fewer than k (``torch.topk`` on
+    CUDA raises past the input's length)."""
+    return torch.topk(torch.cat([carry, vals.reshape(-1)]), k).values
+
+
+def fold_top_k(value_blocks, k: int, device=None) -> torch.Tensor:
+    """Top-k values over an iterable of value blocks (descending, padded
+    with -3.4e38 when fewer than k values exist)."""
+    top = top_k_init(k, device)
+    for v in value_blocks:
+        top = merge_top_k(top, torch.as_tensor(v, device=top.device), k)
+    return top
+
+
+def _fold_setup(source, c, block_rows, memory_budget, prefetch, device):
+    dev = resolve_device(device)
+    rows = resolve_block_rows(source.n, source.d, block_rows=block_rows,
+                              memory_budget=memory_budget,
+                              prefetch=prefetch or DEFAULT_PREFETCH)
+    return dev, rows, as_points(c, dev)
+
+
+def fold_min_d2(source, c, *, impl: str = "auto",
+                block_rows: int | None = None,
+                memory_budget: int | None = None,
+                prefetch: int | None = None, weighted: bool = False,
+                device=None) -> torch.Tensor:
+    """Max over all source points of the min squared distance to ``c``:
+    the squared covering radius as a streamed fold, equal to the
+    in-memory ``max(assign_nearest(x, c)[1])`` for any blocking.
+
+    Each block is one filter step at ``rank=1`` with no ``ds`` carry, and
+    the block maxima combine by ``torch.maximum`` on the device.
+    ``device=None`` means ``"cuda"``. ``weighted=True`` (the weighted
+    support) is not ported yet and raises."""
+    if weighted:
+        raise NotImplementedError("weighted folds are not ported yet")
+    dev, rows, c = _fold_setup(source, c, block_rows, memory_budget,
+                               prefetch, device)
+    best = None
+    for blk in _source_blocks(source, rows, prefetch, dev):
+        _, tops = fused_filter(blk, c, rank=1, impl=impl)
+        bmax = tops.amax()
+        best = bmax if best is None else torch.maximum(best, bmax)
+    if best is None:
+        return torch.zeros((), dtype=torch.float32, device=dev)
+    return best
+
+
+def assign_nearest_source(source, c, *, impl: str = "auto",
+                          block_rows: int | None = None,
+                          memory_budget: int | None = None,
+                          prefetch: int | None = None,
+                          with_weights: bool = False, device=None):
+    """Streaming nearest-center assignment over a source: yields ``(idx
+    (rows,) int32, d2 (rows,))`` per block, in row order; the yields
+    concatenated equal the in-memory ``assign_nearest``. The yields are
+    fresh tensors, not views of the upload ring. ``device=None`` means
+    ``"cuda"``; ``with_weights=True`` is not ported yet and raises."""
+    if with_weights:
+        raise NotImplementedError("weighted folds are not ported yet")
+    dev, rows, c = _fold_setup(source, c, block_rows, memory_budget,
+                               prefetch, device)
+    for blk in _source_blocks(source, rows, prefetch, dev):
+        yield fused_assign(blk, c, impl=impl)
+
+
+def argmin_dist2_over_source(source, c, *, impl: str = "auto",
+                             block_rows: int | None = None,
+                             memory_budget: int | None = None,
+                             prefetch: int | None = None,
+                             device=None) -> torch.Tensor:
+    """For each center row of ``c (m, d)``, the global row index (int32) of
+    the nearest source point, first row on ties.
+
+    The kernel route folds every block into one packed (d2, row) carry
+    inside the kernel; the plain route merges each block's (min, argmin)
+    into the running one on strict ``<``, so the earliest block keeps a
+    tie. ``device=None`` means ``"cuda"``."""
+    if source.n >= 2**31:
+        raise ValueError(f"row indices are int32; n={source.n} is too large")
+    dev, rows, c = _fold_setup(source, c, block_rows, memory_budget,
+                               prefetch, device)
+    m = c.shape[0]
+    off = 0
+    if _resolve(impl, c):
+        carry = argmin_carry(m, dev)
+        for blk in _source_blocks(source, rows, prefetch, dev):
+            fused_argmin_cuda(blk, c, carry, off)
+            off += blk.shape[0]
+        return unpack_argmin(carry)[1]
+    best_d = torch.full((m,), ref.BIG, dtype=torch.float32, device=dev)
+    best_i = torch.zeros((m,), dtype=torch.int32, device=dev)
+    for blk in _source_blocks(source, rows, prefetch, dev):
+        bd, bi = ref.fused_argmin(blk, c)
+        take = bd < best_d
+        best_d = torch.where(take, bd, best_d)
+        best_i = torch.where(take, bi + off, best_i)
+        off += blk.shape[0]
+    return best_i

@@ -1,0 +1,181 @@
+"""Kernels of the streamed folds (CUDA C++) and their plain versions.
+
+Replaces the TPU kernels of ``src/repro/kernels/fused_stream.py``, the
+per-block passes of the source folds (``engine.fold_min_d2``,
+``assign_nearest_source``, ``argmin_dist2_over_source``):
+
+  * ``fused_filter_cuda`` (``csrc/fused_filter.cu``) for
+    ``fused_filter_blocks``: ``new_ds = min(ds, min_j d2)`` and each tile's
+    top-``rank`` of the masked ``new_ds``. At ``rank=1`` with no ``ds`` it
+    is the covering-radius fold's block max of min-distances.
+  * ``fused_assign_cuda`` for ``fused_assign_blocks``: per row the nearest
+    center, exactly kernel #2's function, so it launches
+    ``csrc/assign.cu``'s kernel (the TPU needed a second kernel only
+    because its assign tiles the centers over a sequential grid axis).
+  * ``fused_argmin_cuda`` (``csrc/argmin_rows.cu``) for
+    ``fused_argmin_blocks``: per center the nearest row, folded into a
+    packed (d2, row) carry across blocks.
+
+All three share ``csrc/dist2.cuh``, so every (row, center) pair rounds as in
+``assign.cu`` and a streamed radius equals the in-memory one bitwise. The
+plain versions are in ``ref.py``. Each wrapper counts its launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from . import _build
+from .assign import _TILE_FLOATS
+from .assign import _lib as _assign_lib
+from .ref import BIG, FILTER_TILE_ROWS
+from .ref import assign_nearest as fused_assign_ref  # noqa: F401
+from .ref import fused_argmin as fused_argmin_ref  # noqa: F401
+from .ref import fused_filter as fused_filter_ref  # noqa: F401
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The largest top-k rank the filter kernel takes (one block-wide max
+# extraction per rank); EIM's rank is phi * ln n, about 17 at n = 1e7.
+MAX_RANK = 128
+# The argmin carry before any row: (+3.4e38, row 0), packed as
+# float bits << 32 | row; every finite d2 >= +0 packs below it.
+_CARRY_INIT = int(np.array(BIG, np.float32).view(np.uint32)) << 32
+
+
+@functools.lru_cache(maxsize=None)
+def _filter_lib():
+    lib = _build.library("fused_filter")
+    lib.repro_fused_filter.argtypes = [_P] * 5 + [_I] * 6 + [_P]
+    lib.repro_fused_filter.restype = _I
+    lib.repro_filter_tile_rows.restype = _I
+    lib.repro_filter_max_rank.restype = _I
+    if (lib.repro_filter_tile_rows(), lib.repro_filter_max_rank()) != (
+            FILTER_TILE_ROWS, MAX_RANK):
+        raise RuntimeError("csrc/fused_filter.cu disagrees with "
+                           "FILTER_TILE_ROWS / MAX_RANK")
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _argmin_lib():
+    lib = _build.library("argmin_rows")
+    lib.repro_argmin_rows.argtypes = [_P] * 3 + [_I] * 5 + [_P]
+    lib.repro_argmin_rows.restype = _I
+    return lib
+
+
+def _check_points(x: torch.Tensor, c: torch.Tensor):
+    """Points ``x (n, d)`` and centers ``c (k, d)``: contiguous float32
+    matrices of one width. Returns ``(n, d, k)``."""
+    for name, t in (("x", x), ("c", c)):
+        if t.dim() != 2 or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 matrix, "
+                             f"got {t.dtype} {tuple(t.shape)}, "
+                             f"contiguous={t.is_contiguous()}")
+    if c.shape[1] != x.shape[1]:
+        raise ValueError(f"x {tuple(x.shape)} and c {tuple(c.shape)} differ in d")
+    return x.shape[0], x.shape[1], c.shape[0]
+
+
+def fused_filter_cuda(x: torch.Tensor, c: torch.Tensor, ds=None, hm=None, *,
+                      rank: int):
+    """Launch the filter kernel: same contract as ``fused_filter_ref``.
+
+    ``x (n, d)`` and ``c (k, d)`` contiguous float32; ``ds (n,)`` float32,
+    updated in place, or ``None`` (+3.4e38, and no ``ds`` is written);
+    ``hm (n,)`` bool or ``None`` (every row a candidate). Returns ``(ds,
+    tops (ceil(n / 256), rank))``."""
+    dev = _build.require_hopper(x, c, *(t for t in (ds, hm) if t is not None))
+    n, d, k = _check_points(x, c)
+    if not 1 <= rank <= MAX_RANK:
+        raise ValueError(f"rank must be in [1, {MAX_RANK}], got {rank}")
+    if not (1 <= n < 2**31 - FILTER_TILE_ROWS and 1 <= k < 2**31
+            and 1 <= d < _TILE_FLOATS):
+        raise ValueError(f"unsupported sizes n={n}, k={k}, d={d}")
+    if ds is not None and (ds.shape != (n,) or ds.dtype != torch.float32
+                           or not ds.is_contiguous()):
+        raise ValueError(f"ds must be contiguous float32 ({n},)")
+    if hm is not None and (hm.shape != (n,) or hm.dtype != torch.bool
+                           or not hm.is_contiguous()):
+        raise ValueError(f"hm must be contiguous bool ({n},)")
+    tc = min(k, _TILE_FLOATS // (d + 1))
+    ntiles = -(-n // FILTER_TILE_ROWS)
+    tops = torch.empty((ntiles, rank), dtype=torch.float32, device=dev)
+    lib = _filter_lib()
+    code = lib.repro_fused_filter(
+        x.data_ptr(), c.data_ptr(), None if ds is None else ds.data_ptr(),
+        None if hm is None else hm.data_ptr(), tops.data_ptr(), n, k, d, tc,
+        rank, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, code, "fused_filter")
+    fused_filter_cuda.launches += 1
+    return ds, tops
+
+
+fused_filter_cuda.launches = 0
+
+
+def fused_assign_cuda(x: torch.Tensor, c: torch.Tensor):
+    """Launch the nearest-center kernel of ``csrc/assign.cu`` for a
+    streamed block: ``(idx (n,) int32, d2 (n,) f32)``, same contract as
+    ``fused_assign_ref``. Counted apart from ``assign_nearest_cuda``."""
+    dev = _build.require_hopper(x, c)
+    n, d, k = _check_points(x, c)
+    if not (1 <= n < 2**31 - 2**8 and 1 <= k < 2**31 and 1 <= d < _TILE_FLOATS):
+        raise ValueError(f"unsupported sizes n={n}, k={k}, d={d}")
+    tc = min(k, _TILE_FLOATS // (d + 1))
+    idx = torch.empty((n,), dtype=torch.int32, device=dev)
+    d2 = torch.empty((n,), dtype=torch.float32, device=dev)
+    lib = _assign_lib()
+    code = lib.repro_assign_nearest(
+        x.data_ptr(), c.data_ptr(), idx.data_ptr(), d2.data_ptr(), n, k, d,
+        tc, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, code, "fused_assign")
+    fused_assign_cuda.launches += 1
+    return idx, d2
+
+
+fused_assign_cuda.launches = 0
+
+
+def argmin_carry(m: int, device) -> torch.Tensor:
+    """A fresh (m,) argmin carry: (d2 = +3.4e38, row 0), packed in int64
+    as float bits << 32 | row."""
+    return torch.full((m,), _CARRY_INIT, dtype=torch.int64, device=device)
+
+
+def unpack_argmin(carry: torch.Tensor):
+    """``(best_d (m,) f32, best_i (m,) int32)`` of a packed carry."""
+    best_d = (carry >> 32).to(torch.int32).view(torch.float32)
+    return best_d, (carry & 0xFFFFFFFF).to(torch.int32)
+
+
+def fused_argmin_cuda(x: torch.Tensor, c: torch.Tensor, carry: torch.Tensor,
+                      off: int = 0) -> torch.Tensor:
+    """Launch the per-center argmin kernel over the rows of ``x (n, d)``,
+    numbered from ``off``, folded into ``carry`` (``argmin_carry``) in
+    place: a row takes a center's slot when its (d2, global row) is smaller,
+    so over any blocks in any order the carry ends at the first nearest
+    row. Returns ``carry``."""
+    dev = _build.require_hopper(x, c, carry)
+    n, d, m = _check_points(x, c)
+    if (carry.shape != (m,) or carry.dtype != torch.int64
+            or not carry.is_contiguous()):
+        raise ValueError(f"carry must be contiguous int64 ({m},)")
+    if not (0 <= off and off + n < 2**31 and 1 <= m < 2**31
+            and 1 <= d < _TILE_FLOATS):
+        raise ValueError(f"unsupported sizes off={off}, n={n}, m={m}, d={d}")
+    if n == 0:
+        return carry
+    lib = _argmin_lib()
+    code = lib.repro_argmin_rows(
+        x.data_ptr(), c.data_ptr(), carry.data_ptr(), n, m, d, off,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, code, "argmin_rows")
+    fused_argmin_cuda.launches += 1
+    return carry
+
+
+fused_argmin_cuda.launches = 0

@@ -1,5 +1,5 @@
 """Public kernel API of the port: a thin façade over ``engine``, with the
-names of ``repro.kernels.ops`` that this part of the port has."""
+names of ``repro.kernels.ops`` that the port has so far."""
 from __future__ import annotations
 
 from . import engine, ref  # noqa: F401  (ops.ref is public API)
@@ -7,3 +7,19 @@ from . import engine, ref  # noqa: F401  (ops.ref is public API)
 dist2_to_center = engine.dist2_to_center
 fused_min_argmax = engine.fused_min_argmax
 assign_nearest = engine.assign_nearest
+argmin_dist2_over_rows = engine.argmin_dist2_over_rows
+fused_filter = engine.fused_filter
+fused_assign = engine.fused_assign
+fused_argmin = engine.fused_argmin
+
+# streamed folds over a point source
+DEFAULT_BLOCK_ROWS = engine.DEFAULT_BLOCK_ROWS
+DEFAULT_PREFETCH = engine.DEFAULT_PREFETCH
+resolve_block_rows = engine.resolve_block_rows
+host_blocks_of = engine.host_blocks_of
+fold_min_d2 = engine.fold_min_d2
+assign_nearest_source = engine.assign_nearest_source
+argmin_dist2_over_source = engine.argmin_dist2_over_source
+top_k_init = engine.top_k_init
+merge_top_k = engine.merge_top_k
+fold_top_k = engine.fold_top_k

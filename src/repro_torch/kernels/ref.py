@@ -10,7 +10,15 @@ All distances are *squared* Euclidean; indices are int32.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+# The JAX package's sentinels, bitwise: +-3.4e38 as float32.
+BIG = float(np.float32(3.4e38))
+NEG = float(np.float32(-3.4e38))
+# Rows per tile of the fused filter (csrc/fused_filter.cu: one CUDA block).
+# Per-tile top-k values depend on it; their merge over tiles does not.
+FILTER_TILE_ROWS = 256
 
 
 def dist2_to_center(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -50,3 +58,49 @@ def assign_nearest(x: torch.Tensor, c: torch.Tensor):
     d2 = pairwise_dist2(x, c)
     idx = torch.argmin(d2, dim=-1)
     return idx.to(torch.int32), d2.gather(-1, idx.unsqueeze(-1)).squeeze(-1)
+
+
+def fused_filter(x: torch.Tensor, c: torch.Tensor, ds=None, hm=None, *,
+                 rank: int):
+    """The streamed filter step on one block ``x (n, d)`` against the
+    centers ``c (m, d)``: ``new_ds = min(ds, min_j d2(x, c_j))`` and, for
+    each tile of ``FILTER_TILE_ROWS`` rows, the descending top-``rank`` of
+    ``where(hm, new_ds, -3.4e38)``.
+
+    ``ds (n,)`` is updated in place and returned; ``ds=None`` stands for
+    +3.4e38 everywhere and returns ``None``. ``hm (n,)`` bool gates top-k
+    candidacy only; ``None`` means every row. Returns ``(ds, tops
+    (ceil(n / FILTER_TILE_ROWS), rank))``; slots past a tile's candidates
+    hold -3.4e38."""
+    n = x.shape[0]
+    d2 = pairwise_dist2(x, c).amin(-1)
+    if ds is None:
+        new = torch.minimum(torch.full_like(d2, BIG), d2)
+    else:
+        new = torch.minimum(ds, d2, out=ds)
+    cand = new if hm is None else torch.where(hm, new, NEG)
+    tile = FILTER_TILE_ROWS
+    ntiles = -(-n // tile)
+    pad = torch.full((ntiles * tile - n,), NEG, dtype=cand.dtype,
+                     device=cand.device)
+    cand = torch.cat([cand, pad]).view(ntiles, tile)
+    r = min(rank, tile)
+    tops = torch.topk(cand, r, dim=1).values
+    if rank > r:
+        fill = torch.full((ntiles, rank - r), NEG, dtype=tops.dtype,
+                          device=tops.device)
+        tops = torch.cat([tops, fill], dim=1)
+    return ds, tops
+
+
+def fused_argmin(x: torch.Tensor, c: torch.Tensor):
+    """For each center of ``c (m, d)``, the nearest row of ``x (n, d)``:
+    ``(best_d (m,), best_i (m,) int32)``, first row on ties, ``(3.4e38,
+    0)`` when ``x`` has no row."""
+    if x.shape[0] == 0:
+        return (torch.full((c.shape[0],), BIG, dtype=torch.float32,
+                           device=c.device),
+                torch.zeros((c.shape[0],), dtype=torch.int32, device=c.device))
+    d2 = pairwise_dist2(x, c)                               # (n, m)
+    idx = torch.argmin(d2, dim=0)
+    return d2.gather(0, idx.unsqueeze(0)).squeeze(0), idx.to(torch.int32)

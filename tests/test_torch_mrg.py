@@ -145,7 +145,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("modname", ["repro_torch.core.gonzalez",
-                                     "repro_torch.core.mrg"])
+                                     "repro_torch.core.mrg",
+                                     "repro_torch.core.coreset",
+                                     "repro_torch.data.source"])
 def test_port_doctests(modname):
     mod = __import__(modname, fromlist=["_"])
     result = doctest.testmod(mod, verbose=False)
@@ -155,7 +157,8 @@ def test_port_doctests(modname):
 def test_port_imports_no_jax():
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
-            "repro_torch.data, repro_torch.interop; "
+            "repro_torch.data, repro_torch.interop, repro_torch.data.source, "
+            "repro_torch.kernels.fused_stream, repro_torch.core.coreset; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'repro' not in sys.modules, 'repro imported'")
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
