@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of MRG (paper Algorithm 1) and coreset
-selection on one GPU, in memory and out of core.
+"""Drive the PyTorch/CUDA port of MRG (paper Algorithm 1), coreset
+selection, the weighted and outlier objectives and the streaming sketch on
+one GPU, in memory and out of core.
 
     python3 chip_smoke.py        # from the root of a checkout, one Hopper card
 
@@ -30,7 +31,23 @@ Phases, each of which raises on failure (nothing is caught):
               streamed, wall time and the peak device memory against the
               stated budget; the streamed radius against the in-memory one
               (bitwise), and a small exact input against the CPU;
-  6. a profile of one streamed mrg run (kernels against the ring's copies).
+  6. a profile of one streamed mrg run (kernels against the ring's copies);
+  2g, 2h, 2i (run with phase 2) — the weighted filter (fused_filter.cu's
+              weighted entry) at ranks 1, 101 and 300 with integer weights,
+              unit weights against the plain kernel, and the plain filter
+              at rank 300; the batched assign against the 2-D entry; the
+              pairwise kernel in f32 and f16;
+  7. the weighted objective and (k,z)-center: kz_center in memory and out
+              of core (a weighted host source with planted outliers, a
+              1e7-point generator, an exact-tier input), weighted mrg and
+              weighted select_coreset, against impl="ref" on the card, with
+              launches, synchronising calls (kz_center: exactly its one
+              coreset read), wall time and peak device memory;
+  8. the streaming sketch over the 1e7-point generator and the kddlike host
+              source, both insertion tails, against impl="ref" on the card:
+              coverage passes, launches, synchronising calls, host time of
+              the insertion tail apart from the coverage passes;
+  9. profiles of one streamed kz_center run and one sketch run.
 
 Prints the card's name and power limit, one JSON line describing every
 kernel, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -38,6 +55,7 @@ without a CUDA device, and where the repository's package is missing.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -107,6 +125,11 @@ def device_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     return statistics.median(events[i].elapsed_time(events[i + 1])
                              for i in range(reps))
+
+
+def fmt(ms) -> str:
+    """A time in ms as printed, or "None" where it was not measured."""
+    return "None" if ms is None else f"{ms:.5f}"
 
 
 def bound(nbytes: float, ops: float):
@@ -506,14 +529,16 @@ def near_tie_rows(torch, engine, src, centers, rows):
     return ties
 
 
-def check_coreset(torch, engine, label, src, rows, got, want):
+def check_coreset(torch, engine, label, src, rows, got, want, max_weight=1):
     """Same centers, representatives and weights as impl="ref"; where the
-    float rounding of the two versions may differ, only on near ties."""
+    float rounding of the two versions may differ, only on near ties (a
+    moved row of weight at most ``max_weight`` moves that much weight out
+    of one cluster and into another)."""
     check(torch.equal(got.centers, want.centers), f"{label}: centers differ from ref")
     moved = int((got.weights - want.weights).abs().sum())
     ties = near_tie_rows(torch, engine, src, got.centers, rows) if moved else 0
-    check(moved <= 2 * ties,
-          f"{label}: weights move {moved} rows beyond the {ties} near ties")
+    check(moved <= 2 * ties * max_weight,
+          f"{label}: weights move {moved} beyond the {ties} near ties")
     differ = (got.indices != want.indices).nonzero().flatten().tolist()
     for j in differ:     # both rows must be equally near center j
         pair = torch.from_numpy(src.take([int(got.indices[j]),
@@ -534,10 +559,7 @@ def phase_streamed(torch, engine, P, counters):
     paths = {"mrg": ("gon_step", "fused_filter"),
              "coreset": ("gon_step", "fused_filter", "fused_assign", "argmin_rows")}
     totals = {name: 0 for name in counters}
-    t0 = time.perf_counter()
-    kdd = HostSource(P.kddlike(4_000_000, seed=0))       # 608 MB of host points
-    print(f"kddlike n=4e6 d=38 made on the host in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    kdd = HostSource(kdd_host(P))                        # 608 MB of host points
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(build, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as tmp:
@@ -694,6 +716,526 @@ def phase_stream_profile(torch, P):
         print(f"  {ms:9.4f} ms  {count:6d}x  {name[:90]}", flush=True)
 
 
+# -- slice 3: the weighted objective, (k,z)-center and the streaming sketch --
+
+# Phase 2g: the weighted filter at the super-shards, with the path's k (25
+# for kz_center's and weighted mrg's radius, 125 = t, a round-1 coreset's
+# size) and ranks (1: the weighted radius fold; 101: kz_center's z + 1 at
+# z = 100; 300: past a tile's 256 candidates).
+W_FILTER_SHAPES = [(n, k, d, rank, gen) for n, d, gen in SHARDS
+                   for k in (25, 125) for rank in (1, 101, 300)]
+# Phase 2h: the weighted reducer's assign, m=50 machines of per=20,000 rows
+# against their own t=125 centers (kz_center in memory, unif n=1e6).
+BATCHED_SHAPES = [(50, 20_000, 125, 2, "unif"), (50, 20_000, 125, 38, "kddlike")]
+# Phase 2i: the sketch's bootstrap at k=100, and a large block.
+PAIRWISE_SHAPES = [(101, 101, 38), (65_536, 1_024, 38)]
+PAIRWISE_TOL = {"float32": 1e-4, "float16": 3e-2}      # tests/test_kernels.py
+KZ_Z = 100
+
+
+@functools.lru_cache(maxsize=None)
+def kdd_host(P):
+    """kddlike n=4e6, d=38 on the host (608 MB), made once per run."""
+    t0 = time.perf_counter()
+    x = P.kddlike(4_000_000, seed=0)
+    print(f"kddlike n=4e6 d=38 made on the host in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return x
+
+
+def int_weights(rng, n):
+    """Integer row weights in {1, 2, 3, 4} with about 1 % zeros."""
+    w = rng.integers(1, 5, n).astype(np.float32)
+    w[rng.random(n) < 0.01] = 0.0
+    return w
+
+
+def cuda_t(torch, a):
+    return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+
+def phase_weighted_filter(torch, engine, P, rng, results):
+    print("== phase 2g: weighted filter (fused_filter.cu, weighted entry) "
+          "against its plain version; the plain filter at ranks 101 and 300",
+          flush=True)
+    for n, k, d, rank, gen in W_FILTER_SHAPES:
+        for tier in ("exact", "float"):
+            xt = cuda_t(torch, shard_points(P, rng, n, d, gen, tier))
+            ct = xt[cuda_t(torch, rng.choice(n, k, replace=False))]
+            wt = cuda_t(torch, int_weights(rng, n))
+            ds0 = cuda_t(torch, np.floor(rng.random(n) * 5000).astype(np.float32))
+            hm = cuda_t(torch, rng.random(n) < 0.7)
+            err = 0.0
+            for form in ("fold", "eim"):
+                eim = form == "eim"     # with ds and the mask
+
+                def run(impl, w, eim=eim):
+                    return engine.fused_filter(xt, ct, ds0.clone() if eim else None,
+                                               hm if eim else None, rank=rank,
+                                               w=w, impl=impl)
+
+                got, want = run("kernel", wt), run("ref", wt)
+                unit, plain = run("kernel", torch.ones_like(wt)), run("kernel", None)
+                merged = [engine.merge_top_k(engine.top_k_init(rank), r[1], rank)
+                          for r in (got, want)]
+                torch.cuda.synchronize()
+                check(torch.equal(unit[1], plain[1])
+                      and (not eim or torch.equal(unit[0], plain[0])),
+                      f"filter_w n={n} k={k} rank={rank} {form}: unit weights "
+                      "not bitwise the plain kernel")
+                err = max(err, (merged[0] - merged[1]).abs().max().item())
+                if eim:
+                    err = max(err, (got[0] - want[0]).abs().max().item())
+                label = f"filter_w n={n} k={k} d={d} rank={rank} {form} {tier}"
+                if tier == "exact":
+                    check(torch.equal(got[1], want[1])
+                          and (not eim or torch.equal(got[0], want[0])),
+                          f"{label}: not bitwise")
+                else:
+                    check(torch.allclose(merged[0], merged[1], rtol=1e-4, atol=1e-4),
+                          f"{label}: merged top beyond rtol 1e-4")
+                    if eim:
+                        check(bool(((got[0] - want[0]).abs() <= dist2_tol(xt, ct)).all()),
+                              f"{label}: ds beyond tolerance")
+                if rank > 1 and form == "fold":
+                    # repair 0: the plain kernel past its old cap of 128
+                    # ranks and past a tile's 256 candidates
+                    p_got = engine.fused_filter(xt, ct, rank=rank, impl="kernel")[1]
+                    p_want = engine.fused_filter(xt, ct, rank=rank, impl="ref")[1]
+                    pm = [engine.merge_top_k(engine.top_k_init(rank), t, rank)
+                          for t in (p_got, p_want)]
+                    torch.cuda.synchronize()
+                    p_err = (pm[0] - pm[1]).abs().max().item()
+                    check(torch.equal(p_got, p_want) if tier == "exact" else
+                          torch.allclose(pm[0], pm[1], rtol=1e-4, atol=1e-4),
+                          f"filter n={n} k={k} rank={rank} {tier}: plain kernel "
+                          "differs from its plain version")
+                    ntiles = -(-n // engine.ref.FILTER_TILE_ROWS)
+                    ms = p_plain = None
+                    if tier == "float":
+                        ms = device_ms(torch, lambda: engine.fused_filter(
+                            xt, ct, rank=rank, impl="kernel"))
+                        p_plain = device_ms(torch, lambda: engine.fused_filter(
+                            xt, ct, rank=rank, impl="ref"), reps=5)
+                    b_ms, b_by = bound(4 * (n * d + k * d + ntiles * rank),
+                                       n * k * (2 * d + 5) + 2 * d * (n + k))
+                    print(f"filter n={n} k={k} d={d} rank={rank} fold {tier}: ok "
+                          f"max_abs_err={p_err:.3g} kernel_ms={fmt(ms)} plain_ms={fmt(p_plain)} "
+                          f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
+                    results.append(dict(kernel="fused_filter",
+                                        shape=(n, k, d, rank, gen), tier=tier,
+                                        err=p_err, ms=ms, plain_ms=p_plain,
+                                        bound_ms=b_ms, bound_by=b_by,
+                                        library_ms=None))
+            if tier == "exact":
+                print(f"filter_w n={n} k={k} d={d} rank={rank} exact: ok (fold and "
+                      f"eim forms bitwise; unit weights bitwise the plain kernel)",
+                      flush=True)
+                results.append(dict(kernel="fused_filter_w", shape=(n, k, d, rank, gen),
+                                    tier=tier, err=err, ms=None, plain_ms=None,
+                                    bound_ms=None, bound_by=None, library_ms=None))
+                continue
+            ms = device_ms(torch, lambda: engine.fused_filter(
+                xt, ct, rank=rank, w=wt, impl="kernel"))
+            plain = device_ms(torch, lambda: engine.fused_filter(
+                xt, ct, rank=rank, w=wt, impl="ref"), reps=5)
+            ntiles = -(-n // engine.ref.FILTER_TILE_ROWS)
+            b_ms, b_by = bound(4 * (n * d + k * d + ntiles * rank) + 4 * n,
+                               n * k * (2 * d + 5) + 2 * d * (n + k))
+            print(f"filter_w n={n} k={k} d={d} rank={rank} fold float: ok "
+                  f"max_abs_err={err:.3g} kernel_ms={ms:.5f} plain_ms={plain:.5f} "
+                  f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
+            results.append(dict(kernel="fused_filter_w", shape=(n, k, d, rank, gen),
+                                tier=tier, err=err, ms=ms, plain_ms=plain,
+                                bound_ms=b_ms, bound_by=b_by, library_ms=None))
+
+
+def phase_batched_assign(torch, engine, P, rng, results):
+    print("== phase 2h: batched assign (assign.cu, machine grid axis) against "
+          "its plain version and the 2-D entry", flush=True)
+    for m, per, t, d, gen in BATCHED_SHAPES:
+        for tier in ("exact", "float"):
+            x = (exact_points(rng, (m, per, d)) if tier == "exact"
+                 else P.GENERATORS[gen](m * per, d=d, seed=6).reshape(m, per, d))
+            xt = cuda_t(torch, x)
+            ct = xt[:, cuda_t(torch, rng.choice(per, t, replace=False))].contiguous()
+            got = engine.assign_nearest_batched(xt, ct, impl="kernel")
+            want = engine.assign_nearest_batched(xt, ct, impl="ref")
+            one = [engine.assign_nearest(xt[b], ct[b], impl="kernel") for b in range(m)]
+            torch.cuda.synchronize()
+            check(all(torch.equal(got[0][b], one[b][0]) and torch.equal(got[1][b], one[b][1])
+                      for b in range(m)),
+                  f"assign_batched m={m} d={d} {tier}: not bitwise the 2-D entry")
+            err = (got[1] - want[1]).abs().max().item()
+            if tier == "exact":
+                check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                      f"assign_batched m={m} d={d} exact tier: not bitwise")
+            else:
+                rows = torch.arange(m, device=xt.device)[:, None]
+                tol = dist2_tol(xt.reshape(-1, d),
+                                ct[rows, want[0].long()].reshape(-1, d)).reshape(m, per)
+                check(bool(((got[1] - want[1]).abs() <= tol).all()),
+                      f"assign_batched m={m} d={d}: d2 beyond tolerance ({err})")
+                two = torch.topk(engine.ref.pairwise_dist2(xt, ct), 2, dim=-1,
+                                 largest=False).values
+                unique = (two[..., 1] - two[..., 0]) > 2 * tol
+                check(torch.equal(got[0][unique], want[0][unique]),
+                      f"assign_batched m={m} d={d}: index differs where unique")
+            ms = device_ms(torch, lambda: engine.assign_nearest_batched(
+                xt, ct, impl="kernel"))
+            plain = device_ms(torch, lambda: engine.assign_nearest_batched(
+                xt, ct, impl="ref"))
+            lib = device_ms(torch, lambda: torch.cdist(xt, ct).min(-1))
+            rows_n = m * per
+            b_ms, b_by = bound(4 * (rows_n * d + m * t * d + 2 * rows_n),
+                               rows_n * t * (2 * d + 5) + 2 * d * (rows_n + m * t))
+            print(f"assign_batched m={m} per={per} t={t} d={d} {tier}: ok (each "
+                  f"machine bitwise the 2-D entry) max_abs_err={err:.3g} "
+                  f"kernel_ms={ms:.5f} plain_ms={plain:.5f} library_ms={lib:.5f} "
+                  f"(torch.cdist(x, c).min(-1), batched) bound_ms={b_ms:.5f} ({b_by})",
+                  flush=True)
+            results.append(dict(kernel="assign_batched", shape=(m, per, t, d, gen),
+                                tier=tier, err=err, ms=ms, plain_ms=plain,
+                                bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+
+
+def phase_pairwise(torch, engine, rng, results):
+    print("== phase 2i: pairwise (pairwise.cu) against its plain version",
+          flush=True)
+    for n, m, d in PAIRWISE_SHAPES:
+        for dtype in (torch.float32, torch.float16):
+            name = str(dtype).split(".")[1]
+            for tier in ("exact", "float"):
+                if tier == "exact":
+                    x, c = exact_points(rng, (n, d)), exact_points(rng, (m, d))
+                else:      # tests/test_kernels.py's inputs
+                    x = rng.normal(size=(n, d)).astype(np.float32)
+                    c = rng.normal(size=(m, d)).astype(np.float32)
+                xt, ct = cuda_t(torch, x).to(dtype), cuda_t(torch, c).to(dtype)
+                got = engine.pairwise_dist2(xt, ct, impl="kernel")
+                want = engine.pairwise_dist2(xt, ct, impl="ref")
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                label = f"pairwise n={n} m={m} d={d} {name} {tier}"
+                if tier == "exact":
+                    check(torch.equal(got, want), f"{label}: not bitwise")
+                else:
+                    tol = PAIRWISE_TOL[name]
+                    check(torch.allclose(got, want, rtol=tol, atol=10 * tol),
+                          f"{label}: beyond rtol {tol} ({err})")
+                ms = plain = lib = None
+                if tier == "float":
+                    ms = device_ms(torch, lambda: engine.pairwise_dist2(
+                        xt, ct, impl="kernel"))
+                    plain = device_ms(torch, lambda: engine.pairwise_dist2(
+                        xt, ct, impl="ref"))
+                    xf, cf = xt.float(), ct.float()
+                    lib = device_ms(torch, lambda: torch.cdist(xf, cf).square())
+                b_ms, b_by = bound(4 * n * m + xt.element_size() * (n + m) * d,
+                                   2 * d * n * m)
+                print(f"{label}: ok max_abs_err={err:.3g} kernel_ms={fmt(ms)} "
+                      f"plain_ms={fmt(plain)} library_ms={fmt(lib)} (torch.cdist(x, c)"
+                      f".square() on f32) bound_ms={b_ms:.5f} ({b_by})", flush=True)
+                results.append(dict(kernel="pairwise", shape=(n, m, d, name),
+                                    tier=tier, err=err, ms=ms, plain_ms=plain,
+                                    bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+
+
+def report_syncs(syncs):
+    for w in syncs:
+        print(f"  sync: {str(w.message)[:120]!r} at {w.filename}:{w.lineno}",
+              flush=True)
+
+
+def planted_kdd(P, rng):
+    """The kddlike cloud with 100 rows moved far apart (planted outliers,
+    weight 1 each, so that together they weigh z) and integer weights."""
+    x = kdd_host(P).copy()
+    w = int_weights(rng, x.shape[0])
+    far = rng.choice(x.shape[0], KZ_Z, replace=False)
+    x[far] += (rng.normal(size=(KZ_Z, x.shape[1])) * 1e5).astype(np.float32)
+    w[far] = 1.0
+    return x, w
+
+
+def phase_weighted(torch, engine, P, rng, counters):
+    print("== phase 7: weighted objective and (k,z)-center, impl='auto' "
+          "against impl='ref' on the card", flush=True)
+    from repro_torch.core import (HostStreamExecutor, Objective, SimExecutor,
+                                  kz_center, mrg, select_coreset)
+    from repro_torch.data.source import HostSource, WeightedSource, synthetic_source
+    totals = {name: 0 for name in counters}
+    xk, wk = planted_kdd(P, rng)
+    kdd_w = WeightedSource(HostSource(xk), wk)
+    exact = exact_points(rng, (500_000, 38))
+    exact_w = WeightedSource(HostSource(exact), int_weights(rng, exact.shape[0]))
+    unif = P.unif(1_000_000, d=2, seed=0)
+    runs = [
+        ("kz_center unif n=1e6 d=2 in memory SimExecutor(m=50)", "kz",
+         torch.from_numpy(unif).cuda(), 25, None,
+         ("gon_step", "assign_batched", "assign")),
+        ("kz_center kddlike n=4e6 d=38 weighted host, 100 planted outliers", "kz",
+         kdd_w, 25, 256 * MiB, ("gon_step", "assign_batched", "fused_filter_w")),
+        ("kz_center unif n=1e7 d=2 synthetic", "kz",
+         synthetic_source("unif", 10_000_000, d=2, seed=0), 25, 64 * MiB,
+         ("gon_step", "assign_batched", "fused_filter_w")),
+        ("kz_center exact-tier n=5e5 d=38 weighted host", "kz", exact_w, 25,
+         64 * MiB, ("gon_step", "assign_batched", "fused_filter_w")),
+        ("weighted mrg kddlike n=4e6 d=38 weighted host", "mrg_w", kdd_w, 25,
+         256 * MiB, ("gon_step", "assign_batched", "fused_filter_w")),
+        ("weighted select_coreset kddlike n=4e6 d=38 weighted host", "coreset",
+         kdd_w, 100, 256 * MiB,
+         ("gon_step", "fused_filter", "fused_assign", "argmin_rows")),
+    ]
+    obj = Objective(weighted=True)
+    for label, kind, src, k, budget, path in runs:
+        if budget is None:
+            ex = SimExecutor(50)
+        else:
+            ex = HostStreamExecutor(memory_budget=budget)
+        if kind == "kz":
+            def fn(impl="auto"):
+                return kz_center(src, k, KZ_Z, executor=ex, impl=impl)
+        elif kind == "mrg_w":
+            def fn(impl="auto"):
+                return mrg(src, k, executor=ex, impl=impl, objective=obj)
+        else:
+            def fn(impl="auto"):
+                return select_coreset(src, k, executor=ex, impl=impl)
+        fn()                                              # warm-up
+        reads = kz_center.host_reads
+        res, launches, syncs, blocks, peak = counted_run(torch, fn, counters)
+        reads = kz_center.host_reads - reads
+        walls = wall_ms(torch, fn)
+        ref = fn("ref")
+        torch.cuda.synchronize()
+        report_syncs(syncs)
+        for name in path:
+            check(launches[name] > 0, f"{label}: kernel {name} never launched")
+        for name, c in launches.items():
+            totals[name] += c
+        n, d = src.shape if isinstance(src, torch.Tensor) else (src.n, src.d)
+        r2, r2_ref = res.radius2.item(), ref.radius2.item()
+        check(np.isfinite(r2) and abs(r2 - r2_ref) <= 1e-4 * abs(r2_ref),
+              f"{label}: radius2 {r2} vs ref {r2_ref} beyond rtol 1e-4")
+        if "exact" in label:
+            check(r2 == r2_ref, f"{label}: radius2 not bitwise on the exact tier")
+        check(tuple(res.centers.shape) == (k, d)
+              and bool(torch.isfinite(res.centers).all()), f"{label}: centers")
+        note = ""
+        if kind == "kz":
+            check(len(syncs) == 1 and reads == 1,
+                  f"{label}: {len(syncs)} synchronising calls, {reads} coreset "
+                  "reads (expected the one coreset read)")
+            check(torch.equal(res.centers, ref.centers)
+                  and res.coreset_size == ref.coreset_size
+                  and res.rounds == ref.rounds, f"{label}: differs from ref")
+            note = f"coreset_size={res.coreset_size} rounds={res.rounds}"
+            if src is kdd_w:
+                plain = ex.radius2(src, res.centers).item()
+                check(plain > 100 * r2, f"{label}: planted outliers not excluded "
+                      f"(radius2 {r2} against the plain covering radius2 {plain})")
+                note += f" plain_covering_radius2={plain!r}"
+        else:
+            check(not syncs, f"{label}: {len(syncs)} synchronising calls")
+            wsum = float(np.sum(src.weights_of(0, n), dtype=np.float64))
+            if kind == "mrg_w":
+                check(torch.equal(res.centers, ref.centers) and res.rounds == ref.rounds,
+                      f"{label}: centers or rounds differ from ref")
+                check(torch.equal(res.weights, ref.weights),
+                      f"{label}: cluster weights differ from ref")
+                note = f"rounds={res.rounds}"
+            else:
+                moved, ties, idiff = check_coreset(torch, engine, label, src,
+                                                   ex.rows_for(src), res, ref,
+                                                   max_weight=4)
+                note = (f"weight_moved_vs_ref={moved} near_tie_rows={ties} "
+                        f"representatives_differing={idiff}")
+            check(float(res.weights.sum().item()) == wsum,
+                  f"{label}: cluster weights sum {res.weights.sum().item()} != {wsum}")
+            note += f" weights_sum={wsum!r}"
+        allowed = None
+        if budget is not None:
+            rows = ex.rows_for(src)
+            shards = -(-n // rows)
+            t = k + KZ_Z if kind == "kz" else k
+            allowed = ((ex.prefetch + 1) * 4 * rows * (d + 1)
+                       + 2 * shards * t * (4 * d + 5) + PEAK_SLACK)
+            check(peak <= allowed, f"{label}: peak device memory {peak} bytes "
+                  f"above the allowed {allowed}")
+        print(f"{label} k={k}{f' z={KZ_Z}' if kind == 'kz' else ''}: ok {note} "
+              f"radius2={r2!r} ref_radius2={r2_ref!r} "
+              f"wall_ms={[round(w, 3) for w in walls]} launches={launches} "
+              f"sync_warnings={len(syncs)} blocks_streamed={blocks} "
+              f"peak_MiB={peak / MiB:.2f} allowed_MiB="
+              f"{None if allowed is None else round(allowed / MiB, 2)} "
+              f"budget_MiB={None if budget is None else budget / MiB}", flush=True)
+    # unit weights: the weighted rounds are bitwise the plain ones
+    ex = HostStreamExecutor(memory_budget=256 * MiB)
+    kdd = HostSource(kdd_host(P))
+    unit = mrg(WeightedSource(kdd, np.ones(kdd.n, np.float32)), 25, executor=ex,
+               objective=obj)
+    plain = mrg(kdd, 25, executor=ex)
+    check(torch.equal(unit.centers, plain.centers)
+          and unit.radius2.item() == plain.radius2.item()
+          and unit.rounds == plain.rounds
+          and unit.weights.sum().item() == kdd.n,
+          "unit-weight weighted mrg differs from the plain mrg")
+    print("unit-weight weighted mrg kddlike n=4e6 (256 MiB) == plain mrg bitwise "
+          "(centers, radius2, rounds; weights sum to n)", flush=True)
+    return totals
+
+
+
+class HostClock:
+    """Host time spent in the functions it wraps (the sketch's insertion
+    tail and merge, its coverage passes), by name, while installed."""
+
+    def __init__(self, module, names):
+        self.module, self.names, self.ms = module, names, {}
+        self.orig = {name: getattr(module, name) for name in names}
+
+    def __enter__(self):
+        for name, f in self.orig.items():
+            def timed(*a, _f=f, _name=name, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _f(*a, **kw)
+                finally:
+                    self.ms[_name] = (self.ms.get(_name, 0.0)
+                                      + (time.perf_counter() - t0) * 1e3)
+            setattr(self.module, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, f in self.orig.items():
+            setattr(self.module, name, f)
+
+
+def phase_sketch(torch, P, counters):
+    print("== phase 8: the streaming sketch (stream_update), impl='auto' "
+          "against impl='ref' on the card", flush=True)
+    from repro_torch.core import streaming
+    from repro_torch.core.streaming import stream_init, stream_update
+    from repro_torch.data.source import HostSource, synthetic_source
+    totals = {name: 0 for name in counters}
+    runs = [("unif n=1e7 d=2 synthetic", synthetic_source(
+                 "unif", 10_000_000, d=2, seed=0), 25),
+            ("kddlike n=4e6 d=38 host", HostSource(kdd_host(P)), 100)]
+    for label, src, k in runs:
+        for tail in ("host", "device"):
+            def fn(impl="auto"):
+                return stream_update(stream_init(k, src.d), src, tail=tail,
+                                     impl=impl)
+            # no warm-up: phase 2 built and ran the kernels
+            passes, reads = stream_update.coverage_passes, stream_update.host_reads
+            with HostClock(streaming, ("_insert_tail", "_merge", "_min_d2")) as clock:
+                t0 = time.perf_counter()
+                res, launches, syncs, _, peak = counted_run(torch, fn, counters)
+                wall = (time.perf_counter() - t0) * 1e3
+            passes = stream_update.coverage_passes - passes
+            reads = stream_update.host_reads - reads
+            walls = wall_ms(torch, fn)
+            ref = fn("ref")
+            name = f"sketch {label} k={k} tail={tail}"
+            check(launches["pairwise"] > 0 and launches["assign"] > 0,
+                  f"{name}: pairwise or assign never launched")
+            check(launches["assign"] == passes,
+                  f"{name}: {launches['assign']} assign launches for {passes} passes")
+            check(len(syncs) == reads == passes + 1,
+                  f"{name}: {len(syncs)} synchronising calls, {reads} reads, "
+                  f"{passes} coverage passes (expected one read a pass and one "
+                  "for the bootstrap)")
+            check(res.count == ref.count and res.r == ref.r and np.array_equal(
+                res.centers[:res.count], ref.centers[:ref.count]),
+                f"{name}: sketch differs from impl='ref'")
+            check(0 < res.count <= k and res.r > 0, f"{name}: sketch state")
+            for c, v in launches.items():
+                totals[c] += v
+            host_ms = clock.ms.get("_insert_tail", 0.0) + clock.ms.get("_merge", 0.0)
+            print(f"{name}: ok count={res.count} r={res.r!r} coverage_passes={passes} "
+                  f"launches={launches} sync_warnings={len(syncs)} host_reads={reads} "
+                  f"wall_ms(counted, sync debug on)={wall:.3f} "
+                  f"wall_ms={[round(w, 3) for w in walls]} "
+                  f"insert_tail_and_merge_ms={host_ms:.3f} "
+                  f"coverage_pass_ms(upload, assign, read)={clock.ms.get('_min_d2', 0.0):.3f} "
+                  f"peak_MiB={peak / MiB:.2f}", flush=True)
+    return totals
+
+
+def device_profile(torch, fn):
+    """``fn()`` under the profiler: (wall ms, kernel ms, kernels, copy ms,
+    copies, {name: (ms, count)}), or None when no device time was
+    recorded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return None
+    copies = [e for e in events if e.name.startswith("Memcpy")]
+    kernels = [e for e in events if not e.name.startswith(("Memcpy", "Memset"))]
+    by_name = {}
+    for e in events:
+        ms, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    return (wall, sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
+            len(kernels), sum(e.time_range.elapsed_us() for e in copies) / 1e3,
+            len(copies), by_name)
+
+
+def phase_kz_profile(torch, P, rng):
+    print("== phase 9: profile of one streamed kz_center run (weighted kddlike "
+          "n=4e6, 256 MiB, k=25, z=100)", flush=True)
+    from repro_torch.core import HostStreamExecutor, kz_center, outliers
+    from repro_torch.data.source import HostSource, WeightedSource
+    xk, wk = planted_kdd(P, rng)
+    src = WeightedSource(HostSource(xk), wk)
+    ex = HostStreamExecutor(memory_budget=256 * MiB)
+    kz_center(src, 25, KZ_Z, executor=ex)
+    with HostClock(outliers, ("_weighted_charikar",)) as clock:
+        prof = device_profile(torch, lambda: kz_center(src, 25, KZ_Z, executor=ex))
+    if prof is None:
+        print("profile: no device time recorded (not measured)", flush=True)
+        return
+    wall, busy, nk, copy, nc, by_name = prof
+    print(f"profile: wall_ms={wall:.3f} (profiler on) kernel_busy_ms={busy:.3f} "
+          f"kernels={nk} copy_ms={copy:.3f} copies={nc} "
+          f"idle_share_of_wall={1 - busy / wall:.4f} "
+          f"host_solve_ms={clock.ms.get('_weighted_charikar', 0.0):.3f}",
+          flush=True)
+    for name, (ms, count) in sorted(by_name.items(), key=lambda r: -r[1][0])[:10]:
+        print(f"  {ms:9.4f} ms  {count:6d}x  {name[:90]}", flush=True)
+
+
+def phase_sketch_profile(torch, P):
+    print("== phase 9b: profile of one stream_update run (unif n=1e7 d=2 "
+          "synthetic, k=25, host tail)", flush=True)
+    from repro_torch.core import streaming
+    from repro_torch.core.streaming import stream_init, stream_update
+    from repro_torch.data.source import synthetic_source
+    src = synthetic_source("unif", 10_000_000, d=2, seed=0)
+    with HostClock(streaming, ("_insert_tail", "_merge", "_min_d2")) as clock:
+        prof = device_profile(torch, lambda: stream_update(stream_init(25, 2), src))
+    if prof is None:
+        print("profile: no device time recorded (not measured)", flush=True)
+        return
+    wall, busy, nk, copy, nc, by_name = prof
+    host_ms = clock.ms.get("_insert_tail", 0.0) + clock.ms.get("_merge", 0.0)
+    print(f"profile: wall_ms={wall:.3f} (profiler on) kernel_busy_ms={busy:.3f} "
+          f"kernels={nk} copy_ms={copy:.3f} copies={nc} "
+          f"idle_share_of_wall={1 - busy / wall:.4f} "
+          f"insert_tail_and_merge_ms={host_ms:.3f} "
+          f"coverage_pass_ms={clock.ms.get('_min_d2', 0.0):.3f}", flush=True)
+    for name, (ms, count) in sorted(by_name.items(), key=lambda r: -r[1][0])[:8]:
+        print(f"  {ms:9.4f} ms  {count:6d}x  {name[:90]}", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -703,11 +1245,14 @@ def main() -> int:
     from repro_torch.core import mrg
     from repro_torch.data import pointsets as P
     from repro_torch.kernels import _build, engine
-    from repro_torch.kernels.assign import assign_nearest_cuda
+    from repro_torch.kernels.assign import (assign_nearest_batched_cuda,
+                                            assign_nearest_cuda)
     from repro_torch.kernels.fused_argfar import fused_min_argmax_cuda
     from repro_torch.kernels.fused_stream import (fused_argmin_cuda,
                                                   fused_assign_cuda,
-                                                  fused_filter_cuda)
+                                                  fused_filter_cuda,
+                                                  fused_filter_w_cuda)
+    from repro_torch.kernels.pairwise import pairwise_dist2_cuda
     check("jax" not in sys.modules, "jax was imported")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -743,6 +1288,9 @@ def main() -> int:
                  "(fused_assign_cuda, assign.cu) against its plain version",
                  seed=5)
     phase_argmin(torch, engine, P, rng, results)
+    phase_weighted_filter(torch, engine, P, rng, results)
+    phase_batched_assign(torch, engine, P, rng, results)
+    phase_pairwise(torch, engine, rng, results)
     phase_ring(torch, P)
     counters = {"gon_step": fused_min_argmax_cuda, "assign": assign_nearest_cuda}
     totals = phase_mrg(torch, mrg, counters, P)
@@ -753,13 +1301,24 @@ def main() -> int:
                     argmin_rows=fused_argmin_cuda)
     stream_totals = phase_streamed(torch, engine, P, counters)
     phase_stream_profile(torch, P)
+    counters.update(fused_filter_w=fused_filter_w_cuda,
+                    assign_batched=assign_nearest_batched_cuda,
+                    pairwise=pairwise_dist2_cuda)
+    weighted_totals = phase_weighted(torch, engine, P, rng, counters)
+    sketch_totals = phase_sketch(torch, P, counters)
+    phase_kz_profile(torch, P, rng)
+    phase_sketch_profile(torch, P)
 
     # times at each path's first shape on float inputs — in memory: GON step
     # m=50, per=20000, d=2; assign n=1e6, k=25, d=2 (paper Fig. 4); streamed:
     # the filter at the unif super-shard (k=25, rank 1), assign and argmin at
-    # the kddlike super-shard with the coreset's k=100. Launches: in memory,
-    # phase 3's mrg runs; streamed, phase 5's runs. max_abs_err over every
-    # check of the kernel.
+    # the kddlike super-shard with the coreset's k=100; the weighted filter
+    # at the kddlike super-shard with kz_center's k=25 and rank z + 1 = 101,
+    # the batched assign at m=50, per=20000, t=125, d=2, pairwise at the
+    # sketch's (101, 101, 38) bootstrap in f32. Launches: in memory, phase
+    # 3's mrg runs; streamed, phase 5's runs; the weighted filter, batched
+    # assign and pairwise, phases 7 and 8. max_abs_err over every check of
+    # the kernel.
     meta = {"gon_step": ("src/repro_torch/kernels/csrc/gon_step.cu",
                          "src/repro/kernels/fused_argfar.py:48", GON_SHAPES[0]),
             "assign": ("src/repro_torch/kernels/csrc/assign.cu",
@@ -772,12 +1331,26 @@ def main() -> int:
                              STREAM_ASSIGN_SHAPES[2]),
             "argmin_rows": ("src/repro_torch/kernels/csrc/argmin_rows.cu",
                             "src/repro/kernels/fused_stream.py:285",
-                            ARGMIN_SHAPES[2])}
+                            ARGMIN_SHAPES[2]),
+            "fused_filter_w": ("src/repro_torch/kernels/csrc/fused_filter.cu",
+                               "src/repro/kernels/fused_stream.py:166",
+                               (573_580, 25, 38, KZ_Z + 1, "kddlike")),
+            "assign_batched": ("src/repro_torch/kernels/csrc/assign.cu",
+                               "src/repro/kernels/assign.py:52",
+                               BATCHED_SHAPES[0]),
+            "pairwise": ("src/repro_torch/kernels/csrc/pairwise.cu",
+                         "src/repro/kernels/pairwise.py:41",
+                         PAIRWISE_SHAPES[0] + ("float32",))}
     kernels = []
     for name, (source, replaces, shape) in meta.items():
         mine = [r for r in results if r["kernel"] == name]
         main = next(r for r in mine if r["shape"] == shape and r["tier"] == "float")
-        launches = totals[name] if name in totals else stream_totals[name]
+        if name in totals:
+            launches = totals[name]
+        elif name in ("fused_filter_w", "assign_batched", "pairwise"):
+            launches = weighted_totals[name] + sketch_totals[name]
+        else:
+            launches = stream_totals[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": max(r["err"] for r in mine),

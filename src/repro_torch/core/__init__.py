@@ -1,15 +1,24 @@
 """The paper's parallel k-center algorithms in PyTorch (port of
-``repro.core``: MRG in memory and out of core, and coreset selection).
+``repro.core``: MRG in memory and out of core, coreset selection, the
+weighted and outlier objectives, and the streaming sketch).
 
   gonzalez.py — GON, batched over machine blocks; streamed over a source
   executor.py — SimExecutor (m simulated machines on one device) and
-                HostStreamExecutor (out-of-core super-shards)
+                HostStreamExecutor (out-of-core super-shards); Objective
+                (weighted, outliers)
   mrg.py      — MRG, paper Algorithm 1 (mrg / mrg_sim / plan_rounds)
   coreset.py  — k-center coreset selection (data curation by diversity)
+  outliers.py — (k,z)-center with outliers (kz_center)
+  streaming.py — the doubling sketch over a stream (stream_update)
   metrics.py  — covering radius, assignment, brute-force OPT (tests)
 """
 from .coreset import Coreset, select_coreset  # noqa: F401
-from .executor import Executor, HostStreamExecutor, SimExecutor  # noqa: F401
+from .executor import (Executor, HostStreamExecutor, Objective,  # noqa: F401
+                       SimExecutor, weighted_gon_block_fn)
 from .gonzalez import GonzalezResult, covering_radius, gonzalez  # noqa: F401
-from .metrics import assignment, brute_force_opt, covering_radius2  # noqa: F401
+from .metrics import (assignment, brute_force_opt,  # noqa: F401
+                      brute_force_opt_z, covering_radius2)
 from .mrg import MRGResult, mrg, mrg_sim, plan_rounds  # noqa: F401
+from .outliers import KZResult, covering_radius_excluding, kz_center  # noqa: F401
+from .streaming import (StreamState, stream_init, stream_result,  # noqa: F401
+                        stream_update)

@@ -28,6 +28,19 @@ class Coreset(NamedTuple):
     radius2: torch.Tensor    # ()    squared covering radius
 
 
+def _weight_sums(src, centers, impl, block_rows, memory_budget, dev):
+    """Per-cluster sums of a weighted source's row weights, streamed. The
+    weights of a block are a view of its ring slot, which this frame's end
+    releases before the next pass allocates its own ring."""
+    weights = torch.zeros((centers.shape[0],), dtype=torch.float32,
+                          device=dev)
+    for idx, _, w in ops.assign_nearest_source(
+            src, centers, impl=impl, block_rows=block_rows,
+            memory_budget=memory_budget, with_weights=True, device=dev):
+        weights.index_add_(0, idx, w)
+    return weights
+
+
 def select_coreset(embeddings, k: int, *, mesh=None,
                    executor: Executor | None = None, impl: str = "auto",
                    chunk: int | None = None, block_rows: int | None = None,
@@ -41,7 +54,12 @@ def select_coreset(embeddings, k: int, *, mesh=None,
     ``PointSource``. The reverse passes — cluster sizes and each center's
     example index — stream too for such a source, and inherit the
     executor's ``block_rows``/``memory_budget`` unless given. Cluster sizes
-    are counted in int32 and returned as float32 (exact below 2^24).
+    are counted in int32 and returned as float32 (exact below 2^24). A
+    ``WeightedSource`` (always streamed) sums its row weights per cluster
+    instead of counting rows, so the coreset's importance weights stay a
+    weighted instance; selection and the radius are the plain ones, as in
+    the JAX package. The weights' sums on the card add in no fixed order:
+    bitwise for integer weights whose sums stay below 2^24.
 
     ``device=None`` means the executor's device, else ``"cuda"``. ``mesh``
     (``MeshExecutor``) and ``chunk`` are not ported yet and raise.
@@ -73,8 +91,6 @@ def select_coreset(embeddings, k: int, *, mesh=None,
         # PointSource opts into streaming
         src = ArraySource(embeddings, device=dev)
         streamed = False
-    if has_weights(src):
-        raise NotImplementedError("weighted sources are not ported yet")
     if block_rows is None and memory_budget is None and executor is not None:
         block_rows = getattr(executor, "block_rows", None)
         memory_budget = getattr(executor, "memory_budget", None)
@@ -87,6 +103,13 @@ def select_coreset(embeddings, k: int, *, mesh=None,
     # int32 counts are exact (n < 2^31); one int32 per row is the block's
     # share of the residency model's per-row carry
     counts = torch.zeros((k,), dtype=torch.int32, device=dev)
+    if streamed and has_weights(src):
+        weights = _weight_sums(src, centers, impl, block_rows, memory_budget,
+                               dev)
+        cidx = ops.argmin_dist2_over_source(
+            src, centers, impl=impl, block_rows=block_rows,
+            memory_budget=memory_budget, device=dev)
+        return Coreset(cidx, centers, weights, r2)
     if streamed:
         for idx, _ in ops.assign_nearest_source(
                 src, centers, impl=impl, block_rows=block_rows,

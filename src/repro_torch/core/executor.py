@@ -16,29 +16,77 @@ Their interface is the JAX package's:
   * ``combine(centers, valid, k, capacity)`` — rounds 2+ [reduce]: while
     the union exceeds ``capacity``, re-block and reduce again (Lemma 3),
     then the final single-machine GON;
+  * ``combine_weighted(centers, valid, weights, k, capacity)`` — the same
+    reduction carrying per-cluster weights;
   * ``radius2(source, centers)`` — the squared covering radius over all
     points, a streamed fold (``SimExecutor``: one in-memory pass);
   * ``mrg(source, k)`` — the three in order.
 
-Only the plain k-center objective is ported; ``objective`` other than
-``None`` raises. Nothing here reads a tensor back to the host: the
-``combine`` loop reads only shapes.
+An ``Objective`` generalises the rounds: ``weighted`` runs the weighted
+reducer (``weighted_gon_block_fn``: GON, then each row's weight summed onto
+its nearest center) and the weighted combine, so the k centers arrive with
+their cluster weights; ``outliers=z`` scores ``radius2`` as the top-(z+1)
+fold. Nothing here reads a tensor back to the host: the ``combine`` loops
+read only shapes.
 """
 from __future__ import annotations
 
 import functools
 import warnings
+from dataclasses import dataclass
 from typing import Callable
 
 import torch
 
-from repro_torch.data.source import as_source
-from repro_torch.device import as_points, resolve_device
-from repro_torch.kernels import engine, ops
+from repro_torch.data.source import as_source, has_weights, weights_of
+from repro_torch.device import as_points, resolve_device, upload
+from repro_torch.kernels import engine, ops, ref
 
 from .gonzalez import _gonzalez_device
 
 BlockFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+# Weighted round-1 reducer: (points (m, per, d), mask (m, per) or None,
+# w (m, per)) -> (centers (m, k, d), cluster weights (m, k)).
+WeightedBlockFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
+                           tuple[torch.Tensor, torch.Tensor]]
+
+
+@dataclass(frozen=True)
+class Objective:
+    """The fold objective over the source × executor substrate.
+
+    * ``weighted`` — round 1 reduces weighted instances: the per-machine
+      reducer also emits per-cluster weight sums (the coreset outputs of
+      Ceccarello et al., arXiv 1802.09205), carried through the Lemma-3
+      combine so the final k centers arrive with their cluster weights.
+    * ``outliers`` — z: ``radius2`` becomes the top-(z+1) fold, the squared
+      covering radius after excluding the z farthest points.
+
+    ``Objective()`` (or ``objective=None``) is plain k-center and takes the
+    plain code paths. Center selection never looks at the weights, so
+    unit-weight weighted runs are bitwise the plain runs.
+    """
+
+    name: str = "kcenter"
+    weighted: bool = False
+    outliers: int = 0
+
+    def __post_init__(self):
+        if self.outliers < 0:
+            raise ValueError(f"outliers must be >= 0, got {self.outliers}")
+
+
+def _is_plain(objective) -> bool:
+    """True for the plain objective; raises for anything that is neither
+    ``None`` nor an ``Objective`` (no other objective kind exists)."""
+    if objective is None:
+        return True
+    if not isinstance(objective, Objective):
+        raise NotImplementedError(
+            f"objective must be None or an Objective, got "
+            f"{type(objective).__name__}: no other objective kind is "
+            "implemented")
+    return not objective.weighted and objective.outliers == 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -47,6 +95,42 @@ def gon_block_fn(k: int, impl: str = "auto") -> BlockFn:
     batched over the leading machine axis (``mask=None``: every row)."""
     def fn(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         return _gonzalez_device(points, k, mask=mask, impl=impl).centers
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def weighted_gon_block_fn(k: int, impl: str = "auto", *,
+                          mask_zero: bool = True) -> WeightedBlockFn:
+    """The weighted per-machine reducer, batched over the machine axis:
+    masked GON, then each selected row's weight summed onto its nearest
+    center (one machine's share of a weighted coreset, Ceccarello et al.).
+
+    Selection is ``gon_block_fn``'s GON (k-center's objective does not
+    depend on the weights); the assign is one launch for all machines
+    (``ops.assign_nearest_batched``). ``mask_zero`` also drops ``w <= 0``
+    rows from selection (they are absent from the instance): round 1 wants
+    that; the combine levels pass ``mask_zero=False`` so that their
+    selection mask is exactly the plain ``combine``'s. The sums are
+    ``index_add_``: on the card its atomics add in no fixed order, so a
+    sum is bitwise only where every partial sum is exact — integer
+    weights with sums below 2^24, as cluster counts are; float weights
+    agree to f32 rounding of the sum."""
+    def fn(points: torch.Tensor, mask, w: torch.Tensor):
+        if mask_zero:
+            sel = w > 0 if mask is None else mask & (w > 0)
+        else:
+            sel = mask
+        centers = _gonzalez_device(points, k, mask=sel, impl=impl).centers
+        idx, _ = ops.assign_nearest_batched(points, centers, impl=impl)
+        wsel = w if sel is None else torch.where(sel, w, 0.0)
+        m = points.shape[0]
+        if m > 1:     # machine b's clusters are slots [b·k, (b+1)·k)
+            idx = idx + torch.arange(0, m * k, k, dtype=torch.int32,
+                                     device=idx.device)[:, None]
+        # int32 indices: no int64 copy of a super-shard's assignment
+        cw = torch.zeros((m * k,), dtype=torch.float32, device=points.device)
+        cw.index_add_(0, idx.reshape(-1), wsel.reshape(-1))
+        return centers, cw.view(m, k)
     return fn
 
 
@@ -69,6 +153,16 @@ def _run_round(points_blocked: torch.Tensor, mask_blocked: torch.Tensor,
     any_valid = mask_blocked.any(dim=1)                    # (m,)
     valid = any_valid[:, None].expand(m, k).reshape(m * k)
     return centers, valid
+
+
+def _run_round_w(points_blocked: torch.Tensor, mask_blocked: torch.Tensor,
+                 w_blocked: torch.Tensor, fn: WeightedBlockFn):
+    """Weighted ``_run_round``: also flattens the per-block cluster-weight
+    sums -> ``(centers (m*k, d), valid (m*k,), weights (m*k,))``."""
+    centers, cw = fn(points_blocked, mask_blocked, w_blocked)
+    m, k = centers.shape[0], centers.shape[1]
+    valid = mask_blocked.any(dim=1)[:, None].expand(m, k).reshape(m * k)
+    return centers.reshape(m * k, -1), valid, cw.reshape(-1)
 
 
 def _mrg_round(points_blocked: torch.Tensor, mask_blocked: torch.Tensor,
@@ -100,12 +194,6 @@ def check_combine_capacity(k: int, capacity: int, *,
             "stall and raise", RuntimeWarning, stacklevel=3)
 
 
-def _plain_only(objective) -> None:
-    if objective is not None:
-        raise NotImplementedError(
-            "only the plain k-center objective (objective=None) is ported")
-
-
 class Executor:
     """Base: block-mapped round 1 + shared Lemma-3 reduction."""
 
@@ -113,7 +201,9 @@ class Executor:
 
     def run_blocks(self, fn, source, *, objective=None):
         """Round 1: map ``fn`` over the machine blocks of ``source``.
-        Returns ``(centers (M·k, d), valid (M·k,) bool)``."""
+        Returns ``(centers (M·k, d), valid (M·k,) bool)``; with a weighted
+        ``objective``, ``fn`` is a ``WeightedBlockFn`` and the return gains
+        the per-cluster weight sums ``weights (M·k,) f32``."""
         raise NotImplementedError
 
     def default_capacity(self, source, k: int) -> int:
@@ -145,13 +235,61 @@ class Executor:
         final = _gonzalez_device(centers[None], k, mask=valid[None], impl=impl)
         return final.centers[0], extra
 
+    def combine_weighted(self, centers: torch.Tensor, valid: torch.Tensor,
+                         weights: torch.Tensor, k: int, capacity: int, *,
+                         impl: str = "auto", final_gon: bool = True):
+        """Lemma-3 reduction carrying cluster weights: every level's output
+        stays a weighted instance.
+
+        Each level re-blocks the weighted union, picks per-block GON
+        centers with exactly ``combine``'s selection mask (validity only,
+        so on unit weights the unions are bitwise the plain ``combine``'s)
+        and re-aggregates every row's weight onto its nearest new center.
+        With ``final_gon=False`` the reduction stops as soon as the union
+        fits ``capacity`` (the weighted coreset ``core.outliers.kz_center``
+        solves on the host); otherwise the final single-machine GON runs
+        and the weights are re-aggregated onto the k winners.
+
+        Returns ``(centers, weights, valid, extra_rounds)``; after a final
+        GON, ``centers`` is (k, d) and ``valid`` all True."""
+        check_combine_capacity(k, capacity)
+        w = weights.to(torch.float32)
+        fn = weighted_gon_block_fn(k, impl, mask_zero=False)
+        extra = 0
+        while centers.shape[0] > capacity and centers.shape[0] > k:
+            m2 = -(-centers.shape[0] // capacity)
+            if m2 * k >= centers.shape[0] or extra >= 64:
+                raise ValueError(_DIVERGED_MSG)
+            blocked, bmask = _block(centers, m2)
+            vpad, _ = engine._pad_rows(valid, bmask.numel(), False)
+            bmask = bmask & vpad.reshape(bmask.shape)
+            wpad, _ = engine._pad_rows(w, bmask.numel(), 0.0)
+            centers, valid, w = _run_round_w(blocked, bmask,
+                                             wpad.reshape(bmask.shape), fn)
+            extra += 1
+        if not final_gon:
+            return centers, w, valid, extra
+        final = _gonzalez_device(centers[None], k, mask=valid[None],
+                                 impl=impl).centers[0]
+        idx, _ = ops.assign_nearest(centers, final, impl=impl)
+        w_out = torch.zeros((k,), dtype=torch.float32, device=w.device)
+        w_out.index_add_(0, idx, torch.where(valid, w, 0.0))
+        return (final, w_out,
+                torch.ones((k,), dtype=torch.bool, device=w.device), extra)
+
     def radius2(self, source, centers: torch.Tensor, *, impl: str = "auto",
                 objective=None) -> torch.Tensor:
         """Squared covering radius over ALL source points, streamed
         (``engine.fold_min_d2``). Returns ``max(min_d2)`` itself: a
         ``sqrt`` → square round trip is lossy in f32, and every executor
-        returns the same exact value."""
-        _plain_only(objective)
+        returns the same exact value. A non-plain ``objective`` takes the
+        top-(z+1) fold (``outliers=z``: the radius after excluding the z
+        farthest points), over the positive-weight rows when weighted."""
+        if not _is_plain(objective):
+            top = engine.fold_top_k_min_d2(
+                source, centers, objective.outliers + 1, impl=impl,
+                weighted=objective.weighted, device=self.device)
+            return torch.clamp_min(top[objective.outliers], 0.0)
         return engine.fold_min_d2(source, centers, impl=impl,
                                   device=self.device)
 
@@ -159,17 +297,28 @@ class Executor:
             impl: str = "auto", objective=None):
         """Full MRG on this executor over ``source`` (anything
         ``as_source`` takes). Returns ``(centers (k, d), radius2 (),
-        rounds)``."""
-        _plain_only(objective)
+        rounds)``; with a weighted ``objective``, ``(centers, radius2,
+        rounds, weights (k,))``: the same rounds run weighted, so the k
+        centers arrive with their cluster weights. An ``outliers=z``
+        objective scores ``radius2`` with the top-(z+1) fold."""
+        plain = _is_plain(objective)
         source = as_source(source)
         if capacity is None:
             capacity = self.default_capacity(source, k)
         # Fail on an infeasible capacity *before* the round-1 pass over all
         # of n (warn=False: combine's own check owns the §3.3 warning).
         check_combine_capacity(k, capacity, warn=False)
+        if not plain and objective.weighted:
+            centers, valid, cw = self.run_blocks(
+                weighted_gon_block_fn(k, impl), source, objective=objective)
+            centers, w, _, extra = self.combine_weighted(
+                centers, valid, cw, k, capacity, impl=impl)
+            r2 = self.radius2(source, centers, impl=impl, objective=objective)
+            return centers, r2, 2 + extra, w
         centers, valid = self.run_blocks(gon_block_fn(k, impl), source)
         centers, extra = self.combine(centers, valid, k, capacity, impl=impl)
-        return centers, self.radius2(source, centers, impl=impl), 2 + extra
+        r2 = self.radius2(source, centers, impl=impl, objective=objective)
+        return centers, r2, 2 + extra
 
 
 class SimExecutor(Executor):
@@ -187,9 +336,21 @@ class SimExecutor(Executor):
         self.device = resolve_device(device)
 
     def run_blocks(self, fn, source, *, objective=None):
-        _plain_only(objective)
         blocked, mask = _block(as_points(source, self.device), self.m)
+        if not _is_plain(objective) and objective.weighted:
+            w = self._weights(source)
+            wb, _ = engine._pad_rows(w, mask.numel(), 0.0)
+            return _run_round_w(blocked, mask, wb.reshape(mask.shape), fn)
         return _run_round(blocked, mask, fn)
+
+    def _weights(self, source) -> torch.Tensor:
+        """The source's row weights on the device: uploaded once, or made
+        there (unit weights) for a source without weights."""
+        source = as_source(source)
+        if not has_weights(source):
+            return torch.ones((source.n,), dtype=torch.float32,
+                              device=self.device)
+        return upload(weights_of(source, 0, source.n), self.device)
 
     def default_capacity(self, source, k: int) -> int:
         return max(-(-source.n // self.m), 2 * k)
@@ -197,10 +358,17 @@ class SimExecutor(Executor):
     def radius2(self, source, centers, *, impl="auto", objective=None):
         # One pass of the nearest-center kernel over all n points; returns
         # the squared max directly (a sqrt -> square round trip is lossy).
-        _plain_only(objective)
         _, d2 = ops.assign_nearest(as_points(source, self.device), centers,
                                    impl=impl)
-        return d2.max()
+        if _is_plain(objective):
+            return d2.max()
+        # the objective changes only the reduction: the top-1 of a multiset
+        # is its max, so unit-weight runs keep the bits
+        if objective.weighted:
+            d2 = torch.where(self._weights(source) > 0, d2, ref.NEG)
+        r = objective.outliers + 1
+        top = engine.merge_top_k(engine.top_k_init(r, self.device), d2, r)
+        return torch.clamp_min(top[r - 1], 0.0)
 
 
 class HostStreamExecutor(Executor):
@@ -240,12 +408,23 @@ class HostStreamExecutor(Executor):
         return engine._source_blocks(source, rows, self.prefetch, self.device)
 
     def run_blocks(self, fn, source, *, objective=None):
-        _plain_only(objective)
         source = as_source(source)
+        rows = self.rows_for(source)
+        if not _is_plain(objective) and objective.weighted:
+            # each block comes with its weights from the same ring slot
+            outs, wouts = [], []
+            for blk, w in engine._weighted_source_blocks(
+                    source, rows, self.prefetch, self.device):
+                c, cw = fn(blk[None], None, w[None])
+                outs.append(c[0])
+                wouts.append(cw[0])
+            centers = torch.cat(outs)
+            return (centers, torch.ones((centers.shape[0],), dtype=torch.bool,
+                                        device=centers.device),
+                    torch.cat(wouts))
         # each block's centers are a fresh tensor (GON gathers them), so
         # nothing outlives the ring slot it came from
-        outs = [fn(blk[None], None)[0]
-                for blk in self._blocks(source, self.rows_for(source))]
+        outs = [fn(blk[None], None)[0] for blk in self._blocks(source, rows)]
         centers = torch.cat(outs)                            # (M*k, d)
         return centers, torch.ones((centers.shape[0],), dtype=torch.bool,
                                    device=centers.device)
@@ -254,7 +433,12 @@ class HostStreamExecutor(Executor):
         return max(self.rows_for(source), 2 * k)
 
     def radius2(self, source, centers, *, impl="auto", objective=None):
-        _plain_only(objective)
+        if not _is_plain(objective):
+            top = engine.fold_top_k_min_d2(
+                source, centers, objective.outliers + 1, impl=impl,
+                block_rows=self.rows_for(source), prefetch=self.prefetch,
+                weighted=objective.weighted, device=self.device)
+            return torch.clamp_min(top[objective.outliers], 0.0)
         return engine.fold_min_d2(source, centers, impl=impl,
                                   block_rows=self.rows_for(source),
                                   prefetch=self.prefetch, device=self.device)

@@ -8,8 +8,10 @@ pass over all points.
 
 Inputs are numpy arrays, tensors or point sources: raw arrays run in
 memory on ``SimExecutor``, a host, disk or generator source streams on
-``HostStreamExecutor``. The row-chunked (``chunk``) form is not ported yet
-and raises.
+``HostStreamExecutor``. An ``Objective`` makes the run weighted (the
+cluster weights in ``MRGResult.weights``) or scores the radius without the
+z farthest points. The row-chunked (``chunk``) form is not ported yet and
+raises.
 """
 from __future__ import annotations
 
@@ -20,15 +22,15 @@ import torch
 
 from repro_torch.data.source import ArraySource, as_source, is_source
 
-from .executor import (Executor, HostStreamExecutor, SimExecutor,  # noqa: F401
-                       _block, _mrg_round)
+from .executor import (Executor, HostStreamExecutor, Objective,  # noqa: F401
+                       SimExecutor, _block, _is_plain, _mrg_round)
 
 
 class MRGResult(NamedTuple):
     centers: torch.Tensor   # (k, d)
     radius2: torch.Tensor   # () squared covering radius over ALL points
     rounds: int             # number of GON levels used (2 = classic MRG)
-    # per-cluster weight sums of a weighted objective; always None here
+    # (k,) per-cluster weight sums of a weighted objective, else None
     weights: torch.Tensor | None = None
 
 
@@ -67,6 +69,10 @@ def mrg(points, k: int, *, executor: Executor | None = None, m: int = 50,
     make). ``device=None`` means ``"cuda"`` and raises where there is none.
     ``capacity`` (rows; default: the machine size) triggers the multi-round
     path when the k·m center union would not fit on one machine.
+    ``objective`` (an ``Objective``; ``None`` is plain k-center):
+    ``weighted=True`` threads the source's row weights through every round
+    and fills ``MRGResult.weights`` with the per-cluster sums;
+    ``outliers=z`` scores ``radius2`` with the top-(z+1) fold.
 
     >>> import numpy as np
     >>> x = np.random.default_rng(0).normal(size=(256, 2)).astype(np.float32)
@@ -76,9 +82,7 @@ def mrg(points, k: int, *, executor: Executor | None = None, m: int = 50,
     """
     if chunk is not None:
         raise NotImplementedError("chunk (streamed passes) is not ported yet")
-    if objective is not None:
-        raise NotImplementedError(
-            "only the plain k-center objective (objective=None) is ported")
+    plain = _is_plain(objective)
     streamed = is_source(points) and not isinstance(points, ArraySource)
     if executor is None:
         executor = (HostStreamExecutor(device=device) if streamed
@@ -90,8 +94,12 @@ def mrg(points, k: int, *, executor: Executor | None = None, m: int = 50,
     else:
         source = (points if isinstance(points, ArraySource)
                   else ArraySource(points, device=executor.device))
+    if not plain and objective.weighted:
+        centers, r2, rounds, w = executor.mrg(
+            source, k, capacity=capacity, impl=impl, objective=objective)
+        return MRGResult(centers, r2, rounds, w)
     centers, r2, rounds = executor.mrg(source, k, capacity=capacity,
-                                       impl=impl)
+                                       impl=impl, objective=objective)
     return MRGResult(centers, r2, rounds)
 
 

@@ -13,10 +13,12 @@ from .source import (  # noqa: F401
     MemmapSource,
     PointSource,
     SyntheticSource,
+    WeightedSource,
     as_source,
     has_weights,
     is_source,
     stream_device,
     synthetic_source,
+    take_weights,
     weights_of,
 )

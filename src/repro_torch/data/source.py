@@ -32,8 +32,15 @@ results). ``synthetic_source("unif", ...)`` reproduces ``pointsets.unif``
 bitwise under any blocking; ``gau``/``unb`` share the monolithic cluster
 centers and draw per-block noise from child seeds.
 
-Per-row weights (``WeightedSource``) and the view sources (indexed, slice,
-sharded, process-sharded) are not ported yet.
+``WeightedSource`` attaches host-resident per-row f32 weights to any
+source: a weighted instance. Its ``weighted_blocks`` yields each block with
+its weights, which ride in the unused ``+1`` column of the block's ring
+slot (the residency model's per-row carry), so a block and its weights are
+copied and released together. ``has_weights``, ``weights_of`` and
+``take_weights`` give unit weights for every other source.
+
+The view sources (indexed, slice, sharded, process-sharded) are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -44,7 +51,7 @@ from typing import Callable, Iterator, Protocol, Sequence, runtime_checkable
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, upload
 # the ring depth's one home is the engine's residency model
 from repro_torch.kernels.engine import DEFAULT_PREFETCH
 
@@ -86,16 +93,43 @@ def _check_rows(block_rows: int) -> int:
 
 
 def has_weights(source) -> bool:
-    """True iff ``source`` carries per-row weights."""
+    """True iff ``source`` carries per-row weights (a ``WeightedSource``).
+    Duck-typed, so the check is safe on any source."""
     return bool(getattr(source, "has_weights", False))
 
 
 def weights_of(source, start: int, rows: int) -> np.ndarray:
-    """f32 weights of rows ``[start, start + rows)``: ones for a source
-    without weights. Weighted sources are not ported yet and raise."""
-    if has_weights(source) or hasattr(source, "weights_of"):
-        raise NotImplementedError("weighted sources are not ported yet")
-    return np.ones((int(rows),), np.float32)
+    """f32 weights of rows ``[start, start + rows)`` of ``source``: ones for
+    a source without weights, so every weighted fold runs on every source
+    and, with unit weights, computes the plain objective. A source that says
+    it has weights but has no ``weights_of`` method raises."""
+    fn = getattr(source, "weights_of", None)
+    if fn is None:
+        if has_weights(source):
+            raise NotImplementedError(
+                f"{type(source).__name__} says it has weights but has no "
+                "weights_of: a weighted source must give its row weights")
+        return np.ones((int(rows),), np.float32)
+    w = np.asarray(fn(start, rows), np.float32).reshape(-1)
+    if w.shape[0] != rows:
+        raise ValueError(
+            f"weights_of({start}, {rows}) returned {w.shape[0]} weights")
+    return w
+
+
+def take_weights(source, indices) -> np.ndarray:
+    """f32 weights of the gathered rows ``indices`` (ones when unweighted:
+    the gather-side sibling of ``weights_of``)."""
+    fn = getattr(source, "take_weights", None)
+    idx = np.asarray(indices, np.int64).reshape(-1)
+    if fn is None:
+        return np.ones((idx.size,), np.float32)
+    w = np.asarray(fn(idx), np.float32).reshape(-1)
+    if w.shape[0] != idx.size:
+        raise ValueError(
+            f"take_weights returned {w.shape[0]} weights for "
+            f"{idx.size} indices")
+    return w
 
 
 def _check_take_indices(indices, n: int) -> np.ndarray:
@@ -109,15 +143,21 @@ def _check_take_indices(indices, n: int) -> np.ndarray:
 
 def stream_device(host_blocks: Iterator[np.ndarray],
                   prefetch: int = DEFAULT_PREFETCH,
-                  device=None) -> Iterator[torch.Tensor]:
+                  device=None, weights: np.ndarray | None = None
+                  ) -> Iterator[torch.Tensor]:
     """Upload numpy blocks to ``device`` (``None`` means ``"cuda"``) and
-    yield them as float32 tensors, in order.
+    yield them as float32 tensors, in order. With ``weights`` (the f32 row
+    weights of the whole stream, on the host) it yields ``(block, block's
+    weights)`` pairs instead.
 
     On a CUDA device the blocks go through a ring of ``1 + prefetch``
     slots, each a pinned host buffer and a device buffer. A block is copied
     into its slot's pinned buffer on the host, then to the device buffer
     with ``non_blocking=True`` on a side stream, up to ``prefetch`` blocks
-    ahead of the one the consumer holds. Two events per slot order it:
+    ahead of the one the consumer holds. A block's weights sit in the same
+    slot right after its points (``rows·d`` floats, then ``rows``: the
+    residency model's ``+1`` column), so one copy carries both. Two events
+    per slot order it:
 
       * ``copied`` (side stream, after the copy): the consumer's stream
         waits on it before the block is handed over, and the host waits on
@@ -135,21 +175,35 @@ def stream_device(host_blocks: Iterator[np.ndarray],
         raise ValueError(f"prefetch must be >= 1, got {prefetch}")
     dev = resolve_device(device)
     if dev.type != "cuda":
-        return (torch.from_numpy(np.array(blk, np.float32)).to(dev)
-                for blk in host_blocks)
-    return _cuda_ring(iter(host_blocks), prefetch, dev)
+        return _cpu_blocks(host_blocks, dev, weights)
+    return _cuda_ring(iter(host_blocks), prefetch, dev, weights)
 
 
 stream_device.uploads = 0
 
 
-class _Slot:
-    """One ring slot: pinned host buffer, device buffer and their events."""
+def _cpu_blocks(host_blocks, dev: torch.device, weights):
+    off = 0
+    for blk in host_blocks:
+        x = torch.from_numpy(np.array(blk, np.float32)).to(dev)
+        if weights is None:
+            yield x
+        else:
+            nb = x.shape[0]
+            yield x, torch.from_numpy(np.array(weights[off:off + nb],
+                                               np.float32)).to(dev)
+            off += nb
 
-    def __init__(self, rows: int, d: int, consumer, side):
-        self.pinned = torch.empty((rows, d), dtype=torch.float32,
+
+class _Slot:
+    """One ring slot: pinned host buffer, device buffer and their events,
+    flat, holding a block's ``rows·d`` points and, when weighted, its
+    ``rows`` weights after them."""
+
+    def __init__(self, size: int, consumer, side):
+        self.pinned = torch.empty((size,), dtype=torch.float32,
                                   pin_memory=True)
-        self.buf = torch.empty((rows, d), dtype=torch.float32,
+        self.buf = torch.empty((size,), dtype=torch.float32,
                                device=consumer.device)
         # The allocator handed out memory ordered on the consumer's stream
         # only: the side stream writes it after the consumer's queued work,
@@ -161,35 +215,44 @@ class _Slot:
         self.used = False     # events recorded at least once
 
 
-def _cuda_ring(it, prefetch: int, dev: torch.device):
+def _cuda_ring(it, prefetch: int, dev: torch.device, weights):
     consumer = torch.cuda.current_stream(dev)
     side = torch.cuda.Stream(dev)
     slots: list[_Slot | None] = [None] * (1 + prefetch)
-    ring: deque = deque()       # (slot, rows) in flight, in order
+    ring: deque = deque()       # (slot, rows, d) in flight, in order
     count = 0
+    off = 0                     # the next block's first row
 
     def put(blk: np.ndarray) -> None:
-        nonlocal count
+        nonlocal count, off
         blk = np.asarray(blk, np.float32)
         if blk.ndim != 2:
             raise ValueError(f"expected a (rows, d) block, got {blk.shape}")
         nb, d = blk.shape
+        size = nb * (d + (weights is not None))
         s = count % len(slots)
         count += 1
         slot = slots[s]
         if slot is not None and slot.used:
             slot.copied.synchronize()      # the pinned buffer is free again
-        if slot is None or slot.buf.shape[0] < nb or slot.buf.shape[1] != d:
-            slot = slots[s] = _Slot(nb, d, consumer, side)
-        slot.pinned[:nb].numpy()[...] = blk
+        if slot is None or slot.buf.shape[0] < size:
+            slot = slots[s] = _Slot(size, consumer, side)
+        host = slot.pinned[:size].numpy()
+        host[:nb * d].reshape(nb, d)[...] = blk
+        if weights is not None:
+            w = weights[off:off + nb]
+            if w.shape[0] != nb:
+                raise ValueError(f"weights end before row {off + nb}")
+            host[nb * d:] = w
+        off += nb
         with torch.cuda.stream(side):
             if slot.used:
                 side.wait_event(slot.consumed)
-            slot.buf[:nb].copy_(slot.pinned[:nb], non_blocking=True)
+            slot.buf[:size].copy_(slot.pinned[:size], non_blocking=True)
             slot.copied.record(side)
         slot.used = True
         stream_device.uploads += 1
-        ring.append((slot, nb))
+        ring.append((slot, nb, d))
 
     def fill() -> None:
         while len(ring) < prefetch:
@@ -200,10 +263,11 @@ def _cuda_ring(it, prefetch: int, dev: torch.device):
 
     fill()
     while ring:
-        slot, nb = ring.popleft()
+        slot, nb, d = ring.popleft()
         consumer.wait_event(slot.copied)
         fill()          # the next blocks' copies start before this one is used
-        yield slot.buf[:nb]
+        x = slot.buf[:nb * d].view(nb, d)
+        yield x if weights is None else (x, slot.buf[nb * d:nb * (d + 1)])
         slot.consumed.record(consumer)
 
 
@@ -443,6 +507,101 @@ class SyntheticSource(_HostBacked):
                                   np.float32)
             i = j
         return out
+
+
+class WeightedSource:
+    """Any source plus per-row f32 weights: a weighted instance.
+
+    The weighted objectives (Ceccarello et al., arXiv 1802.09205) work on
+    points that carry multiplicities, such as coreset points standing in
+    for their clusters. The points are the parent's, untouched (same
+    blocks, same bits); the ``(n,)`` weights stay on the host, 4 bytes a
+    row, and reach the device block by block with the points
+    (``weighted_blocks``). Weights must be finite and non-negative;
+    ``w == 0`` marks a row as absent from the instance (the weighted folds
+    gate it out of candidacy).
+
+    >>> import numpy as np
+    >>> src = WeightedSource(HostSource(np.zeros((4, 2), np.float32)),
+    ...                      [1, 0, 2, 1])
+    >>> src.has_weights, src.n, weights_of(src, 1, 2).tolist()
+    (True, 4, [0.0, 2.0])
+    """
+
+    def __init__(self, parent, weights):
+        parent = as_source(parent)
+        w = np.asarray(weights, np.float32).reshape(-1)
+        if w.shape[0] != parent.n:
+            raise ValueError(
+                f"weights have {w.shape[0]} rows, source has {parent.n}")
+        if w.size and (not np.all(np.isfinite(w)) or w.min() < 0):
+            raise ValueError("weights must be finite and non-negative")
+        self._parent = parent
+        self._w = w
+
+    @property
+    def parent(self):
+        return self._parent
+
+    @property
+    def has_weights(self) -> bool:
+        return True
+
+    @property
+    def n(self) -> int:
+        return self._parent.n
+
+    @property
+    def d(self) -> int:
+        return self._parent.d
+
+    def weights_of(self, start: int, rows: int) -> np.ndarray:
+        return self._w[start:start + rows]
+
+    def take_weights(self, indices) -> np.ndarray:
+        return self._w[_check_take_indices(indices, self.n)]
+
+    def host_blocks(self, block_rows: int) -> Iterator[np.ndarray]:
+        if hasattr(self._parent, "host_blocks"):
+            yield from self._parent.host_blocks(block_rows)
+        else:
+            for blk in self._parent.blocks(block_rows, device="cpu"):
+                yield blk.numpy()
+
+    def blocks(self, block_rows: int, *, prefetch: int = DEFAULT_PREFETCH,
+               device=None) -> Iterator[torch.Tensor]:
+        """The parent's blocks (the weights are not needed)."""
+        return self._parent.blocks(block_rows, prefetch=prefetch,
+                                   device=device)
+
+    def weighted_blocks(self, block_rows: int, *,
+                        prefetch: int = DEFAULT_PREFETCH, device=None):
+        """``(points, weights)`` blocks on ``device`` (``None`` means
+        ``"cuda"``). A host-backed parent's blocks carry their weights in
+        the same ring slot (``stream_device``); a device-resident parent's
+        zero-copy slices come with slices of the weights, uploaded once."""
+        if hasattr(self._parent, "host_blocks"):
+            return stream_device(self._parent.host_blocks(block_rows),
+                                 prefetch, device, weights=self._w)
+        return self._resident_weighted_blocks(block_rows, prefetch, device)
+
+    def _resident_weighted_blocks(self, block_rows, prefetch, device):
+        w_dev, off = None, 0
+        for blk in self._parent.blocks(block_rows, prefetch=prefetch,
+                                       device=device):
+            if w_dev is None:
+                w_dev = upload(self._w, blk.device)
+            yield blk, w_dev[off:off + blk.shape[0]]
+            off += blk.shape[0]
+
+    def row(self, idx: int) -> np.ndarray:
+        return self._parent.row(idx)
+
+    def take(self, indices) -> np.ndarray:
+        return self._parent.take(indices)
+
+    def materialize(self, device=None) -> torch.Tensor:
+        return self._parent.materialize(device)
 
 
 def _philox_at(seed: int, offset: int) -> np.random.Generator:

@@ -36,3 +36,15 @@ def as_points(points, device: torch.device) -> torch.Tensor:
             f"points must be a numpy array, a torch.Tensor or a point "
             f"source, got {type(points).__name__}")
     return points.to(device=device, dtype=torch.float32).contiguous()
+
+
+def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``. To a CUDA device it goes
+    through pinned memory with ``non_blocking=True``, so the copy is queued
+    on the current stream and the host does not wait for it (a pageable
+    copy would be a synchronising call); the pinned buffer is held by
+    PyTorch's host allocator until the copy is done."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t.clone().to(device)
+    return t.pin_memory().to(device, non_blocking=True)

@@ -19,6 +19,12 @@
 // so the earliest center wins ties, as torch.argmin does. The ragged last
 // center tile is bounded by the count, not padded with a 1e18 coordinate.
 //
+// Batched entry: m machine blocks x (m, per, d) against their own centers
+// c (m, k, d), the machine a second grid axis (blockIdx.y), as in the GON
+// step; the weighted round-1 reducer assigns each machine's rows to that
+// machine's centers with it. The 2-D entry is the same kernel with one
+// machine, so a batch of one is bitwise the 2-D entry.
+//
 // Rounding: dist2.cuh, which every nearest-center kernel of the port
 // shares, so a pair rounds the same in each of them.
 
@@ -34,6 +40,11 @@ assign_kernel(const float* __restrict__ x, const float* __restrict__ c, int n,
               int k, int d, int tc, int* __restrict__ idx_out,
               float* __restrict__ d2_out) {
   extern __shared__ float smem[];
+  // machine blockIdx.y: its rows, its centers and its outputs
+  x += (int64_t)blockIdx.y * n * d;
+  c += (int64_t)blockIdx.y * k * d;
+  idx_out += (int64_t)blockIdx.y * n;
+  d2_out += (int64_t)blockIdx.y * n;
   const int64_t row = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   const bool live = row < n;
   repro::Row<DMAX> xr;
@@ -45,6 +56,24 @@ assign_kernel(const float* __restrict__ x, const float* __restrict__ c, int n,
     idx_out[row] = best_i;
     d2_out[row] = best;
   }
+}
+
+int launch_assign(const void* x, const void* c, void* idx, void* d2, int m,
+                  int n, int k, int d, int tc, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float* xp = static_cast<const float*>(x);
+  const float* cp = static_cast<const float*>(c);
+  int* ip = static_cast<int*>(idx);
+  float* dp = static_cast<float*>(d2);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((n + kThreads - 1) / kThreads, m);
+  const size_t smem = sizeof(float) * (size_t)tc * (d + 1);
+  repro::dispatch_d(d, [&](auto dmax) {
+    assign_kernel<decltype(dmax)::value>
+        <<<grid, kThreads, smem, s>>>(xp, cp, n, k, d, tc, ip, dp);
+  });
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -61,20 +90,15 @@ const char* repro_error_string(int code) {
 int repro_assign_nearest(const void* x, const void* c, void* idx, void* d2,
                          int n, int k, int d, int tc, int device,
                          void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const float* xp = static_cast<const float*>(x);
-  const float* cp = static_cast<const float*>(c);
-  int* ip = static_cast<int*>(idx);
-  float* dp = static_cast<float*>(d2);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = (n + kThreads - 1) / kThreads;
-  const size_t smem = sizeof(float) * (size_t)tc * (d + 1);
-  repro::dispatch_d(d, [&](auto dmax) {
-    assign_kernel<decltype(dmax)::value>
-        <<<blocks, kThreads, smem, s>>>(xp, cp, n, k, d, tc, ip, dp);
-  });
-  return static_cast<int>(cudaGetLastError());
+  return launch_assign(x, c, idx, d2, 1, n, k, d, tc, device, stream);
+}
+
+// Batched: x (m, per, d) against c (m, k, d) f32, machine by machine;
+// idx (m, per) int32, d2 (m, per) f32; 1 <= m <= 65535.
+int repro_assign_nearest_batched(const void* x, const void* c, void* idx,
+                                 void* d2, int m, int per, int k, int d,
+                                 int tc, int device, void* stream) {
+  return launch_assign(x, c, idx, d2, m, per, k, d, tc, device, stream);
 }
 
 }  // extern "C"

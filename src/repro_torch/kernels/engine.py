@@ -13,25 +13,29 @@ The kernel route needs a CUDA tensor on a device of compute capability 9.x
 (``_build.require_hopper``); it launches the kernel or raises, and never
 falls back to the plain version.
 
-The source folds (``fold_min_d2``, ``assign_nearest_source``,
-``argmin_dist2_over_source``) stream a point source in super-shards of
-``block_rows`` rows through its upload ring, so at most ``1 + prefetch``
-blocks are device-resident (``resolve_block_rows``' residency model), and
-fold each block into O(m)-sized state on the device: no per-block value is
-read back to the host.
+The source folds (``fold_min_d2``, ``fold_top_k_min_d2``,
+``assign_nearest_source``, ``argmin_dist2_over_source``) stream a point
+source in super-shards of ``block_rows`` rows through its upload ring, so
+at most ``1 + prefetch`` blocks are device-resident (``resolve_block_rows``'
+residency model), and fold each block into O(m)- or O(rank)-sized state on
+the device: no per-block value is read back to the host. The weighted
+folds take each block's row weights from the same ring slot as its points
+(``_weighted_source_blocks``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.device import as_points, resolve_device
+from repro_torch.device import as_points, resolve_device, upload
 
 from . import ref
-from .assign import assign_nearest_cuda
+from .assign import assign_nearest_batched_cuda, assign_nearest_cuda
 from .fused_argfar import fused_min_argmax_cuda
 from .fused_stream import (argmin_carry, fused_argmin_cuda, fused_assign_cuda,
-                           fused_filter_cuda, unpack_argmin)
+                           fused_filter_cuda, fused_filter_w_cuda,
+                           unpack_argmin)
+from .pairwise import pairwise_dist2_cuda, pairwise_dist2_ref
 
 IMPLS = ("auto", "kernel", "ref")
 
@@ -68,6 +72,17 @@ def dist2_to_center(x, c, *, impl: str = "auto"):
     return ref.dist2_to_center(x, c)
 
 
+def pairwise_dist2(x, c, *, impl: str = "auto", chunk: int | None = None):
+    """``(n, d), (m, d) -> (n, m)`` squared distances, f32 or f16 inputs
+    computed in f32 (see ``pairwise.pairwise_dist2_ref``). ``chunk`` is not
+    ported yet and raises."""
+    if chunk is not None:
+        raise NotImplementedError("chunk (row-chunked passes) is not ported yet")
+    if _resolve(impl, x):
+        return pairwise_dist2_cuda(x, c)
+    return pairwise_dist2_ref(x, c)
+
+
 def fused_min_argmax(x, c, md, *, impl: str = "auto"):
     """Batched GON step: ``x (m, per, d)``, ``c (m, d)``, ``md (m, per)`` ->
     ``(md, far_val (m,), far_idx (m,) int32)``. ``md`` is updated in place
@@ -85,18 +100,32 @@ def assign_nearest(x, c, *, impl: str = "auto"):
     return ref.assign_nearest(x, c)
 
 
+def assign_nearest_batched(x, c, *, impl: str = "auto"):
+    """Nearest-center assignment of machine blocks ``x (m, per, d)``, each
+    against its own centers ``c (m, k, d)``: ``(idx (m, per) int32, d2
+    (m, per))``, one launch for all machines on the card."""
+    if _resolve(impl, x):
+        return assign_nearest_batched_cuda(x, c)
+    return ref.assign_nearest(x, c)
+
+
 def argmin_dist2_over_rows(x, c, *, impl: str = "auto"):
     """For each center row of ``c (m, d)``, the index of the nearest row of
     ``x (n, d)``: ``assign_nearest(c, x)[0]``, first row on ties."""
     return assign_nearest(c, x, impl=impl)[0]
 
 
-def fused_filter(x, c, ds=None, hm=None, *, rank: int, impl: str = "auto"):
+def fused_filter(x, c, ds=None, hm=None, *, rank: int, w=None,
+                 impl: str = "auto"):
     """The streamed filter step on one block: ``(ds, tops (tiles, rank))``
-    (see ``ref.fused_filter``); ``ds`` is updated in place."""
+    (see ``ref.fused_filter``); ``ds`` is updated in place. With row
+    weights ``w`` the weighted kernel runs: ``w <= 0`` rows are out of
+    top-k candidacy."""
     if _resolve(impl, x):
-        return fused_filter_cuda(x, c, ds, hm, rank=rank)
-    return ref.fused_filter(x, c, ds, hm, rank=rank)
+        if w is None:
+            return fused_filter_cuda(x, c, ds, hm, rank=rank)
+        return fused_filter_w_cuda(x, c, ds, hm, w=w, rank=rank)
+    return ref.fused_filter(x, c, ds, hm, rank=rank, w=w)
 
 
 def fused_assign(x, c, *, impl: str = "auto"):
@@ -203,6 +232,43 @@ def _fold_setup(source, c, block_rows, memory_budget, prefetch, device):
     return dev, rows, as_points(c, dev)
 
 
+def _source_weights(source, start: int, rows: int) -> np.ndarray:
+    """Per-row f32 weights of rows ``[start, start + rows)``, duck-typed:
+    a source without a ``weights_of`` method has unit weights.
+    ``repro_torch.data.source.weights_of`` is the public form of the same
+    contract."""
+    fn = getattr(source, "weights_of", None)
+    if fn is None:
+        return np.ones((int(rows),), np.float32)
+    w = np.asarray(fn(start, rows), np.float32).reshape(-1)
+    if w.shape[0] != rows:
+        raise ValueError(
+            f"weights_of({start}, {rows}) returned {w.shape[0]} weights")
+    return w
+
+
+def _weighted_source_blocks(source, rows: int, prefetch: int | None, device):
+    """``(points, weights)`` blocks of a source on ``device``: a
+    ``WeightedSource``'s ``weighted_blocks`` (the weights ride in the
+    points' ring slot); another source's blocks with its ``weights_of``
+    uploaded block by block through pinned memory; unit weights made on
+    the device for a source without weights."""
+    if hasattr(source, "weighted_blocks"):
+        yield from source.weighted_blocks(
+            rows, prefetch=prefetch or DEFAULT_PREFETCH, device=device)
+        return
+    weighted = hasattr(source, "weights_of")
+    off = 0
+    for blk in _source_blocks(source, rows, prefetch, device):
+        nb = blk.shape[0]
+        if weighted:
+            w = upload(_source_weights(source, off, nb), blk.device)
+        else:
+            w = torch.ones((nb,), dtype=torch.float32, device=blk.device)
+        yield blk, w
+        off += nb
+
+
 def fold_min_d2(source, c, *, impl: str = "auto",
                 block_rows: int | None = None,
                 memory_budget: int | None = None,
@@ -214,10 +280,17 @@ def fold_min_d2(source, c, *, impl: str = "auto",
 
     Each block is one filter step at ``rank=1`` with no ``ds`` carry, and
     the block maxima combine by ``torch.maximum`` on the device.
-    ``device=None`` means ``"cuda"``. ``weighted=True`` (the weighted
-    support) is not ported yet and raises."""
+    ``weighted=True`` restricts the max to rows of weight > 0 (the rank-1
+    case of ``fold_top_k_min_d2``; with all weights positive, the same
+    value). ``device=None`` means ``"cuda"``."""
     if weighted:
-        raise NotImplementedError("weighted folds are not ported yet")
+        top = fold_top_k_min_d2(source, c, 1, impl=impl,
+                                block_rows=block_rows,
+                                memory_budget=memory_budget,
+                                prefetch=prefetch, weighted=True,
+                                device=device)
+        # an empty support leaves the -3.4e38 sentinel: radius 0
+        return torch.clamp_min(top[0], 0.0)
     dev, rows, c = _fold_setup(source, c, block_rows, memory_budget,
                                prefetch, device)
     best = None
@@ -230,6 +303,39 @@ def fold_min_d2(source, c, *, impl: str = "auto",
     return best
 
 
+def fold_top_k_min_d2(source, c, rank: int, *, impl: str = "auto",
+                      block_rows: int | None = None,
+                      memory_budget: int | None = None,
+                      prefetch: int | None = None, weighted: bool = False,
+                      device=None) -> torch.Tensor:
+    """Descending top-``rank`` of the min squared distances to ``c`` over
+    all source points: with ``rank = z + 1``, slot ``z`` is the squared
+    covering radius after excluding the ``z`` farthest points (the
+    outlier objective's evaluation fold).
+
+    Each block is one filter step at ``rank`` with no ``ds`` carry; its
+    per-tile tops merge into the running top-``rank`` on the device. Top-k
+    values do not depend on the blocking, so the result equals the
+    in-memory top-k of ``assign_nearest(x, c)[1]``; slots past the
+    support hold -3.4e38. ``weighted=True`` runs the weighted filter with
+    each block's row weights: rows of weight <= 0 are out of candidacy.
+    ``device=None`` means ``"cuda"``."""
+    if rank < 1:
+        raise ValueError(f"rank must be >= 1, got {rank}")
+    dev, rows, c = _fold_setup(source, c, block_rows, memory_budget,
+                               prefetch, device)
+    top = top_k_init(rank, dev)
+    if weighted:
+        for blk, w in _weighted_source_blocks(source, rows, prefetch, dev):
+            _, tops = fused_filter(blk, c, rank=rank, w=w, impl=impl)
+            top = merge_top_k(top, tops, rank)
+        return top
+    for blk in _source_blocks(source, rows, prefetch, dev):
+        _, tops = fused_filter(blk, c, rank=rank, impl=impl)
+        top = merge_top_k(top, tops, rank)
+    return top
+
+
 def assign_nearest_source(source, c, *, impl: str = "auto",
                           block_rows: int | None = None,
                           memory_budget: int | None = None,
@@ -238,12 +344,16 @@ def assign_nearest_source(source, c, *, impl: str = "auto",
     """Streaming nearest-center assignment over a source: yields ``(idx
     (rows,) int32, d2 (rows,))`` per block, in row order; the yields
     concatenated equal the in-memory ``assign_nearest``. The yields are
-    fresh tensors, not views of the upload ring. ``device=None`` means
-    ``"cuda"``; ``with_weights=True`` is not ported yet and raises."""
-    if with_weights:
-        raise NotImplementedError("weighted folds are not ported yet")
+    fresh tensors, not views of the upload ring. ``with_weights=True``
+    appends each block's row weights on the device, ``(idx, d2, w)``
+    (unit weights for a source without them); ``w`` is valid until the
+    next block is asked for. ``device=None`` means ``"cuda"``."""
     dev, rows, c = _fold_setup(source, c, block_rows, memory_budget,
                                prefetch, device)
+    if with_weights:
+        for blk, w in _weighted_source_blocks(source, rows, prefetch, dev):
+            yield (*fused_assign(blk, c, impl=impl), w)
+        return
     for blk in _source_blocks(source, rows, prefetch, dev):
         yield fused_assign(blk, c, impl=impl)
 

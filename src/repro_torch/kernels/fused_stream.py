@@ -6,8 +6,16 @@ per-block passes of the source folds (``engine.fold_min_d2``,
 
   * ``fused_filter_cuda`` (``csrc/fused_filter.cu``) for
     ``fused_filter_blocks``: ``new_ds = min(ds, min_j d2)`` and each tile's
-    top-``rank`` of the masked ``new_ds``. At ``rank=1`` with no ``ds`` it
-    is the covering-radius fold's block max of min-distances.
+    top-``rank`` of the masked ``new_ds``, at any rank (a 256-row tile
+    gives at most 256 values; the wrapper fills the slots past them). At
+    ``rank=1`` with no ``ds`` it is the covering-radius fold's block max
+    of min-distances.
+  * ``fused_filter_w_cuda`` (the same source's weighted entry) for
+    ``fused_filter_blocks_w``: per-row weights ``w`` also gate candidacy
+    (``w <= 0`` rows never enter the top-k; their ``ds`` still updates).
+    It launches the same kernel, so with ``w > 0`` everywhere it is
+    bitwise ``fused_filter_cuda``. The weighted folds
+    (``engine.fold_top_k_min_d2(weighted=True)``) launch it.
   * ``fused_assign_cuda`` for ``fused_assign_blocks``: per row the nearest
     center, exactly kernel #2's function, so it launches
     ``csrc/assign.cu``'s kernel (the TPU needed a second kernel only
@@ -16,7 +24,7 @@ per-block passes of the source folds (``engine.fold_min_d2``,
     ``fused_argmin_blocks``: per center the nearest row, folded into a
     packed (d2, row) carry across blocks.
 
-All three share ``csrc/dist2.cuh``, so every (row, center) pair rounds as in
+All of them share ``csrc/dist2.cuh``, so every (row, center) pair rounds as in
 ``assign.cu`` and a streamed radius equals the in-memory one bitwise. The
 plain versions are in ``ref.py``. Each wrapper counts its launches.
 """
@@ -31,15 +39,12 @@ import torch
 from . import _build
 from .assign import _TILE_FLOATS
 from .assign import _lib as _assign_lib
-from .ref import BIG, FILTER_TILE_ROWS
+from .ref import BIG, FILTER_TILE_ROWS, NEG
 from .ref import assign_nearest as fused_assign_ref  # noqa: F401
 from .ref import fused_argmin as fused_argmin_ref  # noqa: F401
 from .ref import fused_filter as fused_filter_ref  # noqa: F401
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# The largest top-k rank the filter kernel takes (one block-wide max
-# extraction per rank); EIM's rank is phi * ln n, about 17 at n = 1e7.
-MAX_RANK = 128
 # The argmin carry before any row: (+3.4e38, row 0), packed as
 # float bits << 32 | row; every finite d2 >= +0 packs below it.
 _CARRY_INIT = int(np.array(BIG, np.float32).view(np.uint32)) << 32
@@ -50,12 +55,12 @@ def _filter_lib():
     lib = _build.library("fused_filter")
     lib.repro_fused_filter.argtypes = [_P] * 5 + [_I] * 6 + [_P]
     lib.repro_fused_filter.restype = _I
+    lib.repro_fused_filter_w.argtypes = [_P] * 6 + [_I] * 6 + [_P]
+    lib.repro_fused_filter_w.restype = _I
     lib.repro_filter_tile_rows.restype = _I
-    lib.repro_filter_max_rank.restype = _I
-    if (lib.repro_filter_tile_rows(), lib.repro_filter_max_rank()) != (
-            FILTER_TILE_ROWS, MAX_RANK):
+    if lib.repro_filter_tile_rows() != FILTER_TILE_ROWS:
         raise RuntimeError("csrc/fused_filter.cu disagrees with "
-                           "FILTER_TILE_ROWS / MAX_RANK")
+                           "FILTER_TILE_ROWS")
     return lib
 
 
@@ -80,41 +85,69 @@ def _check_points(x: torch.Tensor, c: torch.Tensor):
     return x.shape[0], x.shape[1], c.shape[0]
 
 
+def _filter_launch(entry: str, x, c, ds, hm, w, rank: int):
+    """Checks, outputs and the launch shared by the filter entries."""
+    dev = _build.require_hopper(
+        x, c, *(t for t in (ds, hm, w) if t is not None))
+    n, d, k = _check_points(x, c)
+    if rank < 1:
+        raise ValueError(f"rank must be >= 1, got {rank}")
+    if not (1 <= n < 2**31 - FILTER_TILE_ROWS and 1 <= k < 2**31
+            and 1 <= d < _TILE_FLOATS):
+        raise ValueError(f"unsupported sizes n={n}, k={k}, d={d}")
+    for name, t, dtype in (("ds", ds, torch.float32), ("hm", hm, torch.bool),
+                           ("w", w, torch.float32)):
+        if t is not None and (t.shape != (n,) or t.dtype != dtype
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous {dtype} ({n},)")
+    tc = min(k, _TILE_FLOATS // (d + 1))
+    ntiles = -(-n // FILTER_TILE_ROWS)
+    tops = torch.empty((ntiles, rank), dtype=torch.float32, device=dev)
+    if rank > FILTER_TILE_ROWS:
+        # a tile has FILTER_TILE_ROWS candidates; the kernel writes as many
+        tops[:, FILTER_TILE_ROWS:] = NEG
+    lib = _filter_lib()
+    ptrs = [x.data_ptr(), c.data_ptr(), None if ds is None else ds.data_ptr(),
+            None if hm is None else hm.data_ptr()]
+    if w is not None:
+        ptrs.append(w.data_ptr())
+    code = getattr(lib, entry)(
+        *ptrs, tops.data_ptr(), n, k, d, tc, rank, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, code, entry)
+    return ds, tops
+
+
 def fused_filter_cuda(x: torch.Tensor, c: torch.Tensor, ds=None, hm=None, *,
                       rank: int):
     """Launch the filter kernel: same contract as ``fused_filter_ref``.
 
     ``x (n, d)`` and ``c (k, d)`` contiguous float32; ``ds (n,)`` float32,
     updated in place, or ``None`` (+3.4e38, and no ``ds`` is written);
-    ``hm (n,)`` bool or ``None`` (every row a candidate). Returns ``(ds,
-    tops (ceil(n / 256), rank))``."""
-    dev = _build.require_hopper(x, c, *(t for t in (ds, hm) if t is not None))
-    n, d, k = _check_points(x, c)
-    if not 1 <= rank <= MAX_RANK:
-        raise ValueError(f"rank must be in [1, {MAX_RANK}], got {rank}")
-    if not (1 <= n < 2**31 - FILTER_TILE_ROWS and 1 <= k < 2**31
-            and 1 <= d < _TILE_FLOATS):
-        raise ValueError(f"unsupported sizes n={n}, k={k}, d={d}")
-    if ds is not None and (ds.shape != (n,) or ds.dtype != torch.float32
-                           or not ds.is_contiguous()):
-        raise ValueError(f"ds must be contiguous float32 ({n},)")
-    if hm is not None and (hm.shape != (n,) or hm.dtype != torch.bool
-                           or not hm.is_contiguous()):
-        raise ValueError(f"hm must be contiguous bool ({n},)")
-    tc = min(k, _TILE_FLOATS // (d + 1))
-    ntiles = -(-n // FILTER_TILE_ROWS)
-    tops = torch.empty((ntiles, rank), dtype=torch.float32, device=dev)
-    lib = _filter_lib()
-    code = lib.repro_fused_filter(
-        x.data_ptr(), c.data_ptr(), None if ds is None else ds.data_ptr(),
-        None if hm is None else hm.data_ptr(), tops.data_ptr(), n, k, d, tc,
-        rank, dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, code, "fused_filter")
+    ``hm (n,)`` bool or ``None`` (every row a candidate); any ``rank >=
+    1``. Returns ``(ds, tops (ceil(n / 256), rank))``."""
+    out = _filter_launch("repro_fused_filter", x, c, ds, hm, None, rank)
     fused_filter_cuda.launches += 1
-    return ds, tops
+    return out
 
 
 fused_filter_cuda.launches = 0
+
+
+def fused_filter_w_cuda(x: torch.Tensor, c: torch.Tensor, ds=None, hm=None,
+                        *, w: torch.Tensor, rank: int):
+    """Launch the weighted filter kernel: ``fused_filter_cuda`` whose
+    candidates are also gated by the row weights ``w (n,)`` contiguous
+    float32 (``w > 0``); same contract as ``fused_filter_ref(..., w=w)``.
+    Counted apart from ``fused_filter_cuda``."""
+    if w is None:
+        raise ValueError("the weighted filter needs w")
+    out = _filter_launch("repro_fused_filter_w", x, c, ds, hm, w, rank)
+    fused_filter_w_cuda.launches += 1
+    return out
+
+
+fused_filter_w_cuda.launches = 0
 
 
 def fused_assign_cuda(x: torch.Tensor, c: torch.Tensor):

@@ -5,8 +5,10 @@ from __future__ import annotations
 from . import engine, ref  # noqa: F401  (ops.ref is public API)
 
 dist2_to_center = engine.dist2_to_center
+pairwise_dist2 = engine.pairwise_dist2
 fused_min_argmax = engine.fused_min_argmax
 assign_nearest = engine.assign_nearest
+assign_nearest_batched = engine.assign_nearest_batched
 argmin_dist2_over_rows = engine.argmin_dist2_over_rows
 fused_filter = engine.fused_filter
 fused_assign = engine.fused_assign
@@ -18,6 +20,7 @@ DEFAULT_PREFETCH = engine.DEFAULT_PREFETCH
 resolve_block_rows = engine.resolve_block_rows
 host_blocks_of = engine.host_blocks_of
 fold_min_d2 = engine.fold_min_d2
+fold_top_k_min_d2 = engine.fold_top_k_min_d2
 assign_nearest_source = engine.assign_nearest_source
 argmin_dist2_over_source = engine.argmin_dist2_over_source
 top_k_init = engine.top_k_init

@@ -29,11 +29,12 @@ def dist2_to_center(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 def pairwise_dist2(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """Squared distances ``(n, m)`` between rows of ``x (n, d)`` and
-    ``c (m, d)`` by the clamped decomposition ``|x|^2 + |c|^2 - 2 x.c^T``."""
-    xn = (x * x).sum(-1, keepdim=True)           # (n, 1)
-    cn = (c * c).sum(-1, keepdim=True).T         # (1, m)
-    d2 = xn + cn - 2.0 * (x @ c.T)
+    """Squared distances ``(..., n, m)`` between rows of ``x (..., n, d)``
+    and ``c (..., m, d)`` by the clamped decomposition ``|x|^2 + |c|^2 -
+    2 x.c^T`` (leading axes are machines, matched pairwise)."""
+    xn = (x * x).sum(-1, keepdim=True)                       # (..., n, 1)
+    cn = (c * c).sum(-1, keepdim=True).transpose(-1, -2)     # (..., 1, m)
+    d2 = xn + cn - 2.0 * (x @ c.transpose(-1, -2))
     return torch.clamp_min(d2, 0.0)
 
 
@@ -54,31 +55,37 @@ def fused_min_argmax(x: torch.Tensor, c: torch.Tensor, md: torch.Tensor):
 
 def assign_nearest(x: torch.Tensor, c: torch.Tensor):
     """Nearest center of every row: ``(idx (n,) int32, d2 (n,))``, first
-    occurrence on ties."""
+    occurrence on ties. Batched, ``x (m, per, d)`` against each machine's
+    own centers ``c (m, k, d)`` gives ``(m, per)`` results."""
     d2 = pairwise_dist2(x, c)
     idx = torch.argmin(d2, dim=-1)
     return idx.to(torch.int32), d2.gather(-1, idx.unsqueeze(-1)).squeeze(-1)
 
 
 def fused_filter(x: torch.Tensor, c: torch.Tensor, ds=None, hm=None, *,
-                 rank: int):
+                 rank: int, w=None):
     """The streamed filter step on one block ``x (n, d)`` against the
     centers ``c (m, d)``: ``new_ds = min(ds, min_j d2(x, c_j))`` and, for
     each tile of ``FILTER_TILE_ROWS`` rows, the descending top-``rank`` of
-    ``where(hm, new_ds, -3.4e38)``.
+    ``where(hm & (w > 0), new_ds, -3.4e38)``.
 
     ``ds (n,)`` is updated in place and returned; ``ds=None`` stands for
-    +3.4e38 everywhere and returns ``None``. ``hm (n,)`` bool gates top-k
-    candidacy only; ``None`` means every row. Returns ``(ds, tops
-    (ceil(n / FILTER_TILE_ROWS), rank))``; slots past a tile's candidates
-    hold -3.4e38."""
+    +3.4e38 everywhere and returns ``None``. ``hm (n,)`` bool and the row
+    weights ``w (n,)`` f32 gate top-k candidacy only (a row with ``w <= 0``
+    is absent from the weighted instance, but its ``ds`` still updates);
+    ``None`` means every row. Returns ``(ds, tops (ceil(n /
+    FILTER_TILE_ROWS), rank))``; slots past a tile's candidates hold
+    -3.4e38, so any ``rank >= 1`` is taken."""
     n = x.shape[0]
     d2 = pairwise_dist2(x, c).amin(-1)
     if ds is None:
         new = torch.minimum(torch.full_like(d2, BIG), d2)
     else:
         new = torch.minimum(ds, d2, out=ds)
-    cand = new if hm is None else torch.where(hm, new, NEG)
+    sel = hm
+    if w is not None:
+        sel = w > 0 if sel is None else sel & (w > 0)
+    cand = new if sel is None else torch.where(sel, new, NEG)
     tile = FILTER_TILE_ROWS
     ntiles = -(-n // tile)
     pad = torch.full((ntiles * tile - n,), NEG, dtype=cand.dtype,

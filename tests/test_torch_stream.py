@@ -386,11 +386,10 @@ def test_new_entry_points_default_to_cuda(monkeypatch):
 def test_unported_options_raise():
     x = pointsets.unif(64, seed=0)
     src, c = HostSource(x), torch.from_numpy(x[:2])
-    with pytest.raises(NotImplementedError):
-        engine.fold_min_d2(src, c, weighted=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        next(engine.assign_nearest_source(src, c, with_weights=True,
-                                          device="cpu"))
+    with pytest.raises(NotImplementedError, match="chunk"):
+        engine.pairwise_dist2(c, c, chunk=8)
+    with pytest.raises(NotImplementedError, match="chunk"):
+        mrg(src, 4, chunk=8, device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         select_coreset(x, 4, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="chunk"):
