@@ -12,23 +12,33 @@ Phases, each of which raises on failure (nothing is caught):
               its path's shapes: bitwise on exact-arithmetic inputs (integer
               coordinates), within tolerance on float inputs; times from
               CUDA events with the device queue backed up, so they are
-              device times and not host enqueue times. 2a GON step, 2b
-              assign (in-memory path); 2c filter, 2d streamed assign, 2e
-              per-center argmin (streamed path, at the super-shards that
-              HostStreamExecutor(memory_budget=...) resolves); 2f the
-              sources' pinned upload ring against a lagging consumer;
+              device times and not host enqueue times. 2a GON step (in
+              memory and on the streamed super-shards, in the path's form:
+              a run's workspace, the next center into a slot; edge cases:
+              a misaligned machine stride, a masked machine, a tie across
+              CTAs, two runs on one workspace, the streamed carry over 3
+              blocks), 2b assign (in-memory path); 2c filter, 2d streamed
+              assign, 2e per-center argmin (streamed path, at the
+              super-shards that HostStreamExecutor(memory_budget=...)
+              resolves; edge cases: m up to 300, d up to 1000 (smaller
+              center tiles at 200, the wide kernel at 1000), n below a
+              tile and 0, planted ties); 2f the sources' pinned upload ring
+              against a lagging consumer;
   3. mrg    — ``repro_torch.core.mrg`` in memory at paper scale (UNIF/GAU/
               UNB at n = 1e6, kddlike, pokerlike) with impl="auto": launch
               counts (reset just before each run, read just after),
               synchronising calls reported by torch.cuda.set_sync_debug_mode,
-              wall time, and agreement with the same call at impl="ref" on
-              the card and, on a small input, with the CPU;
-  4. a profile of one in-memory mrg run (device busy share, time by kernel);
+              wall time, host time per GON iteration, and agreement with
+              the same call at impl="ref" on the card and, on a small
+              input, with the CPU;
+  4. a profile of one in-memory mrg run (device busy share, time by kernel;
+              one device kernel per GON iteration);
   5. the streamed path — ``mrg`` and ``select_coreset`` over point sources
               on HostStreamExecutor (a 1e7-point generator source, 608 MB of
               host points, on-disk shards), each against impl="ref" on the
               card, with launch counts, synchronising calls, blocks
-              streamed, wall time and the peak device memory against the
+              streamed, wall time, host time per GON iteration and the
+              peak device memory against the
               stated budget; the streamed radius against the in-memory one
               (bitwise), and a small exact input against the CPU;
   6. a profile of one streamed mrg run (kernels against the ring's copies);
@@ -42,7 +52,8 @@ Phases, each of which raises on failure (nothing is caught):
               1e7-point generator, an exact-tier input), weighted mrg and
               weighted select_coreset, against impl="ref" on the card, with
               launches, synchronising calls (kz_center: exactly its one
-              coreset read), wall time and peak device memory;
+              coreset read), wall time, host time per GON iteration and
+              peak device memory;
   8. the streaming sketch over the 1e7-point generator and the kddlike host
               source, both insertion tails, against impl="ref" on the card:
               coverage passes, launches, synchronising calls, host time of
@@ -52,6 +63,15 @@ Phases, each of which raises on failure (nothing is caught):
 Prints the card's name and power limit, one JSON line describing every
 kernel, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
 without a CUDA device, and where the repository's package is missing.
+
+    python3 chip_smoke.py --times SRC [SRC ...]
+
+times only the GON step and the per-center argmin at their path shapes, in
+call forms that every version of the two kernels takes, for the
+``repro_torch`` under each ``SRC`` directory in turn (one process each, in
+the order given), and prints them side by side. To compare a change with its
+parent on one card, unpack the parent with ``git archive`` into a git-ignored
+directory and name the trees parent, change, change, parent.
 """
 from __future__ import annotations
 
@@ -74,8 +94,14 @@ ASSIGN_TOL = dict(rtol=1e-4, atol=1e-4)    # tests/test_kernels.py
 NEG = float(np.float32(-3.4e38))
 
 # The path's shapes: GON step on m=50 machine blocks of per=20000 rows
-# (n = 1e6, paper Fig. 4); assign over all n points (SimExecutor.radius2).
-GON_SHAPES = [(50, 20_000, 2, "unif"), (50, 20_000, 38, "kddlike")]
+# (n = 1e6, paper Fig. 4), on one super-shard of the streamed runs
+# (HostStreamExecutor's round 1: kddlike at 256 MiB, unif n=1e7 at 64
+# MiB) and on the final GON's union of 50 × 25 centers (one machine, a
+# small launch), and pokerlike's round 1 (n = 25,010 on 50 machines, d =
+# 10); assign over all n points (SimExecutor.radius2).
+GON_SHAPES = [(50, 20_000, 2, "unif"), (50, 20_000, 38, "kddlike"),
+              (1, 573_580, 38, "kddlike"), (1, 1_864_135, 2, "unif"),
+              (1, 1_250, 2, "unif"), (50, 501, 10, "pokerlike")]
 ASSIGN_SHAPES = [(1_000_000, 25, 2, "unif"), (1_000_000, 100, 2, "unif"),
                  (400_000, 100, 38, "kddlike")]
 MRG_CONFIGS = [("unif", 1_000_000, 2, 25), ("unif", 1_000_000, 2, 100),
@@ -137,27 +163,55 @@ def bound(nbytes: float, ops: float):
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
+def generated(P, gen, n, d, seed):
+    """n points of generator ``gen`` at width d (pokerlike's is fixed, 10)."""
+    if gen == "pokerlike":
+        return P.pokerlike(n, seed=seed)
+    return P.GENERATORS[gen](n, d=d, seed=seed)
+
+
 def exact_points(rng, shape):
     # small integers: every f32 sum of the kernels is exact in any order
     return np.floor(rng.random(shape) * 50).astype(np.float32)
 
 
+def gon_step_pair(torch, engine, xt, c_slot, md, k=2, slot=1):
+    """The GON step in the path's form (a workspace, the next center into
+    ``slot`` of an (m, k, d) output) on the kernel and on the plain version,
+    from the same inputs. Returns ``(kernel outputs, plain outputs)``, each
+    ``(md, far_v, far_i, centers, indices)``."""
+    m, _, d = xt.shape
+    outs = []
+    for impl in ("kernel", "ref"):
+        centers = torch.full((m, k, d), -1.0, device=xt.device)
+        indices = torch.full((m, k), -1, dtype=torch.int32, device=xt.device)
+        ws = engine.gon_workspace(m, xt, impl=impl)
+        got = engine.fused_min_argmax(xt, c_slot, md.clone(), impl=impl, ws=ws,
+                                      centers=centers, indices=indices, slot=slot)
+        outs.append((got[0], got[1].clone(), got[2].clone(), centers, indices))
+    return outs
+
+
 def phase_gon_step(torch, engine, P, rng, results):
     print("== phase 2a: GON step (gon_step.cu) against its plain version", flush=True)
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.fused_argfar import ctas_per_sm, gon_plan
+    floor = device_ms(torch, lambda: torch.cuda._sleep(1))
+    print(f"timing floor: an empty kernel takes {floor:.5f} ms by device_ms",
+          flush=True)
     for m, per, d, gen in GON_SHAPES:
         for tier in ("exact", "float"):
             if tier == "exact":
                 x = exact_points(rng, (m, per, d))
                 md0 = np.floor(rng.random((m, per)) * 5000).astype(np.float32)
             else:
-                x = P.GENERATORS[gen](m * per, d=d, seed=3).reshape(m, per, d)
+                x = generated(P, gen, m * per, d, 3).reshape(m, per, d)
                 md0 = (rng.random((m, per)) * 1e4).astype(np.float32)
             md0[:, ::7] = NEG                  # masked rows
             xt = torch.from_numpy(x).cuda()
             ct = xt[:, 11].contiguous()
             md_t = torch.from_numpy(md0).cuda()
-            got = engine.fused_min_argmax(xt, ct, md_t.clone(), impl="kernel")
-            want = engine.fused_min_argmax(xt, ct, md_t.clone(), impl="ref")
+            got, want = gon_step_pair(torch, engine, xt, ct, md_t)
             torch.cuda.synchronize()
             err = (got[0] - want[0]).abs().max().item()
             if tier == "exact":
@@ -172,19 +226,100 @@ def phase_gon_step(torch, engine, P, rng, results):
                 unique = (top[:, 0] - top[:, 1]) > 1e-5 * top[:, 0].abs()
                 check(torch.equal(got[2][unique], want[2][unique]),
                       f"gon_step d={d}: far index differs where unique")
+            # the next center is x[b, far] in slot 1, the index beside it
+            rows = torch.arange(m, device=xt.device)
+            check(torch.equal(got[3][:, 1], xt[rows, got[2].long()])
+                  and torch.equal(got[4][:, 1], got[2]),
+                  f"gon_step d={d} {tier}: slot 1 is not x[b, far]")
+            ws = engine.gon_workspace(m, xt, impl="kernel")
+            centers = torch.zeros((m, 2, d), device=xt.device)
+            indices = torch.zeros((m, 2), dtype=torch.int32, device=xt.device)
             ms = device_ms(torch, lambda: engine.fused_min_argmax(
-                xt, ct, md_t, impl="kernel"))
+                xt, ct, md_t, impl="kernel", ws=ws, centers=centers,
+                indices=indices, slot=1))
             plain = device_ms(torch, lambda: engine.fused_min_argmax(
-                xt, ct, md_t, impl="ref"))
+                xt, ct, md_t, impl="ref", centers=centers, indices=indices,
+                slot=1))
+            read = device_ms(torch, lambda: xt.amax())
             nbytes = 4 * (m * per * d + m * d + 2 * m * per + 2 * m)
             b_ms, b_by = bound(nbytes, m * per * (3 * d + 2))
+            plan = gon_plan(m, per, d, sm_count(0))
             print(f"gon_step m={m} per={per} d={d} {tier}: ok "
                   f"max_abs_err={err:.3g} kernel_ms={ms:.5f} plain_ms={plain:.5f} "
-                  f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
+                  f"bound_ms={b_ms:.5f} ({b_by}) x_read_ms={read:.5f} (torch.amax(x), "
+                  f"a yardstick of reading x once) plan={tuple(plan)} "
+                  f"ctas_per_sm={ctas_per_sm(d, plan.smem)}", flush=True)
             results.append(dict(kernel="gon_step", shape=(m, per, d, gen),
                                 tier=tier, err=err,
                                 ms=ms, plain_ms=plain, bound_ms=b_ms,
                                 bound_by=b_by, library_ms=None))
+    gon_edge_cases(torch, engine, rng)
+
+
+def gon_edge_cases(torch, engine, rng):
+    """The GON kernel's edge cases, bitwise on the exact tier: a misaligned
+    machine stride with a fully masked machine and equal maxima in two
+    CTAs' tiles; two GON runs back to back on one workspace (its counters
+    reset); the streamed carry over 3 blocks against one pass."""
+    from repro_torch.core import gonzalez
+    from repro_torch.core.gonzalez import _gonzalez_device
+    from repro_torch.data.source import HostSource
+    m, per, d = 3, 20_001, 3          # machine b starts at b·60,003 floats
+    x = exact_points(rng, (m, per, d))
+    md0 = np.floor(rng.random((m, per)) * 5000).astype(np.float32)
+    md0[:, ::7] = NEG
+    md0[m - 1] = NEG                  # a machine with no valid row
+    x[0, 1_000] = x[0, 19_000] = 500.0    # equal maxima in two CTAs' tiles
+    md0[0, 1_000] = md0[0, 19_000] = 1e9
+    xt = torch.from_numpy(x).cuda()
+    got, want = gon_step_pair(torch, engine, xt, xt[:, 5].contiguous(),
+                              torch.from_numpy(md0).cuda())
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "gon_step per=20001 d=3: not bitwise the plain version")
+    check(got[2].tolist() == [1_000, got[2][1].item(), 0]
+          and got[1][2].item() == NEG,
+          f"gon_step per=20001 d=3: far {got[2].tolist()} (tie or masked machine)")
+    # a GON run of 25 steps on 50 machines, twice on one workspace
+    x = exact_points(rng, (50, 20_000, 2))
+    xt = torch.from_numpy(x).cuda()
+    ws = engine.gon_workspace(50, xt, impl="kernel")
+    runs = []
+    for _ in range(2):
+        centers = torch.empty((50, 25, 2), device=xt.device)
+        indices = torch.empty((50, 25), dtype=torch.int32, device=xt.device)
+        centers[:, 0] = xt[:, 0]
+        indices[:, 0] = 0
+        md = torch.full((50, 20_000), float(np.float32(3.4e38)), device=xt.device)
+        for i in range(25):
+            engine.fused_min_argmax(xt, centers[:, i], md, impl="kernel", ws=ws,
+                                    centers=centers, indices=indices, slot=i + 1)
+        runs.append((centers, indices, md))
+    want = _gonzalez_device(xt, 25, impl="ref")
+    torch.cuda.synchronize()
+    check(all(torch.equal(r[0], want.centers) and torch.equal(r[1], want.indices)
+              and torch.equal(r[2].clamp_min(0.0), want.min_d2) for r in runs),
+          "GON twice on one workspace: differs from the plain version")
+    check(int(ws.counter.abs().sum()) == 0, "GON workspace counters not reset")
+    # the streamed carry: 3 blocks, a tie planted across blocks 0 and 2
+    x = exact_points(rng, (30_000, 3))
+    x[4_000] = x[25_000] = 400.0
+    src = HostSource(x)
+    streamed = gonzalez(src, 12, block_rows=10_000)
+    one_pass = gonzalez(torch.from_numpy(x).cuda(), 12)
+    plain = gonzalez(src, 12, block_rows=10_000, impl="ref")
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(streamed[:3], one_pass[:3]))
+          and torch.equal(streamed.min_d2, one_pass.min_d2.cpu())
+          and all(torch.equal(a, b) for a, b in zip(streamed, plain)),
+          "streamed GON over 3 blocks differs from one pass or from the plain version")
+    check(int(streamed.indices[1]) == 4_000,
+          f"streamed GON: tie across blocks went to row {int(streamed.indices[1])}")
+    print("gon_step edge cases: per=20001 d=3 (misaligned machines, a masked "
+          "machine, a tie across two CTAs) bitwise; 2 runs of 25 steps on one "
+          "workspace bitwise the plain GON, counters back to 0; streamed carry "
+          "over 3 blocks == one pass == plain (tie across blocks kept by the "
+          "first)", flush=True)
 
 
 def phase_assign(torch, P, rng, results, name, op, shapes, title, seed):
@@ -305,7 +440,10 @@ def phase_filter(torch, engine, P, rng, results):
 def phase_argmin(torch, engine, P, rng, results):
     print("== phase 2e: per-center argmin (argmin_rows.cu) against its plain "
           "version", flush=True)
-    from repro_torch.kernels.fused_stream import argmin_carry, fused_argmin_cuda, unpack_argmin
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.fused_stream import (argmin_carry, argmin_ctas_per_sm,
+                                                  argmin_plan, fused_argmin_cuda,
+                                                  unpack_argmin)
     for n, m, d, gen in ARGMIN_SHAPES:
         for tier in ("exact", "float"):
             xt = torch.from_numpy(shard_points(P, rng, n, d, gen, tier)).cuda()
@@ -337,18 +475,67 @@ def phase_argmin(torch, engine, P, rng, results):
                 unique = (two[:, 1] - two[:, 0]) > 2 * tol
                 check(torch.equal(got[1][unique], want[1][unique]),
                       f"argmin n={n} m={m} d={d}: row differs where unique")
-            ms = device_ms(torch, lambda: engine.fused_argmin(xt, ct, impl="kernel"))
+            # the path's call on a source's first block: every timed launch
+            # folds into a fresh carry, so its atomicMins run
+            fresh = iter([argmin_carry(m, xt.device) for _ in range(23)])
+            ms = device_ms(torch, lambda: fused_argmin_cuda(xt, ct, next(fresh)),
+                           reps=20, warmup=3)
             plain = device_ms(torch, lambda: engine.fused_argmin(xt, ct, impl="ref"),
                               reps=5)
             lib = device_ms(torch, lambda: torch.cdist(ct, xt).min(1), reps=5)
             nbytes = 4 * (n * d + m * d) + 16 * m
             b_ms, b_by = bound(nbytes, n * m * (2 * d + 5) + 2 * d * (n + m))
+            plan = argmin_plan(n, m, d, sm_count(0))
             print(f"argmin n={n} m={m} d={d} {tier}: ok max_abs_err={err:.3g} "
                   f"kernel_ms={ms:.5f} plain_ms={plain:.5f} library_ms={lib:.5f} "
-                  f"(torch.cdist(c, x).min(1)) bound_ms={b_ms:.5f} ({b_by})", flush=True)
+                  f"(torch.cdist(c, x).min(1)) bound_ms={b_ms:.5f} ({b_by}) "
+                  f"plan={tuple(plan)} ctas_per_sm="
+                  f"{argmin_ctas_per_sm(plan.tc, plan.smem) if plan.tc else None}",
+                  flush=True)
             results.append(dict(kernel="argmin_rows", shape=(n, m, d, gen),
                                 tier=tier, err=err, ms=ms, plain_ms=plain,
                                 bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+    argmin_edge_cases(torch, engine, rng)
+
+
+def argmin_edge_cases(torch, engine, rng):
+    """The argmin kernel's edge cases, bitwise on the exact tier: center
+    counts past one tile and widths past the old register limit, n below
+    one tile and n = 0, ties inside one thread's rows and across CTAs, and
+    widths that take smaller center tiles (d = 200) or the wide kernel
+    (d = 1000)."""
+    from repro_torch.kernels.fused_stream import argmin_carry, fused_argmin_cuda
+    cases = [(50_000, m, d) for m in (1, 129, 300) for d in (65, 130)]
+    cases += [(100, 25, 2), (90, 7, 38), (573_580, 100, 38), (1_864_135, 25, 2)]
+    cases += [(50_000, m, 200) for m in (1, 129)] + [(20_000, m, 1000) for m in (1, 300)]
+    for n, m, d in cases:
+        x = exact_points(rng, (n, d))
+        c = exact_points(rng, (m, d))
+        c[0], c[-1] = 70.0, 80.0      # off the grid: only the planted rows match
+        if n > 200:
+            # rows 130 and 194 are one thread's (64 apart in a 128-row
+            # sub-tile); rows n // 2 and n - 1 lie in two CTAs' stages
+            x[130] = x[194] = c[0]
+            x[n // 2] = x[n - 1] = c[-1]
+        xt, ct = torch.from_numpy(x).cuda(), torch.from_numpy(c).cuda()
+        got = engine.fused_argmin(xt, ct, impl="kernel")
+        want = engine.fused_argmin(xt, ct, impl="ref")
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"argmin edge n={n} m={m} d={d}: not bitwise")
+        if n > 200:
+            check(int(got[1][0]) == 130 and (m == 1 or int(got[1][-1]) == n // 2),
+                  f"argmin edge n={n} m={m} d={d}: planted ties lost")
+    carry = argmin_carry(5, "cuda")
+    before = fused_argmin_cuda.launches
+    fused_argmin_cuda(torch.empty((0, 3), device="cuda"),
+                      torch.ones((5, 3), device="cuda"), carry, 7)
+    check(fused_argmin_cuda.launches == before
+          and torch.equal(carry, argmin_carry(5, "cuda")),
+          "argmin n=0: the carry changed or a kernel launched")
+    print(f"argmin edge cases: {[(n, m, d) for n, m, d in cases]} bitwise, ties "
+          "inside one thread's rows and across CTAs kept by the first row; n=0 "
+          "leaves the carry", flush=True)
 
 
 def phase_ring(torch, P):
@@ -411,13 +598,8 @@ def phase_mrg(torch, mrg, counters, P):
         for name, c in launches.items():
             check(c > 0, f"mrg {gen} n={n} k={k}: kernel {name} never launched")
             totals[name] += c
-        walls = []
-        for _ in range(10):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            mrg(xt, k, m=50)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
+        with gon_clock() as clock:
+            walls = wall_ms(torch, lambda: mrg(xt, k, m=50), runs=10)
         ref = mrg(xt, k, m=50, impl="ref")
         torch.cuda.synchronize()
         check(tuple(res.centers.shape) == (k, d), "centers shape")
@@ -436,8 +618,24 @@ def phase_mrg(torch, mrg, counters, P):
               f"radius={r2 ** 0.5:.6g} radius2={r2!r} ref_radius2={r2_ref!r} "
               f"centers_differing_from_ref={differ} "
               f"wall_ms_median={statistics.median(walls):.3f} "
-              f"launches={launches} sync_warnings={len(syncs)}", flush=True)
+              f"launches={launches} sync_warnings={len(syncs)} "
+              f"{gon_host_note(clock, 10, launches)}", flush=True)
     return totals
+
+
+def gon_clock():
+    """A host clock around every GON run the executors start."""
+    from repro_torch.core import executor
+    return HostClock(executor, ("_gonzalez_device",))
+
+
+def gon_host_note(clock, runs, launches):
+    """Host time of the GON runs per GON iteration (one kernel launch each),
+    from ``clock`` over ``runs`` runs of ``launches['gon_step']`` launches."""
+    iters = runs * launches["gon_step"]
+    us = clock.ms.get("_gonzalez_device", 0.0) * 1e3 / iters if iters else 0.0
+    return (f"gon_iterations={launches['gon_step']} "
+            f"gon_host_us_per_iteration={us:.2f}")
 
 
 def phase_small_vs_cpu(torch, mrg, P):
@@ -452,7 +650,7 @@ def phase_small_vs_cpu(torch, mrg, P):
           flush=True)
 
 
-def phase_profile(torch, mrg, P, gen, n, d, k):
+def phase_profile(torch, mrg, P, gen, n, d, k, gon):
     print(f"== phase 4: profile of one mrg run ({gen} n={n} d={d} m=50 k={k})",
           flush=True)
     from torch.autograd import DeviceType
@@ -460,6 +658,7 @@ def phase_profile(torch, mrg, P, gen, n, d, k):
     xt = torch.from_numpy(P.GENERATORS[gen](n, d=d, seed=0)).cuda()
     mrg(xt, k, m=50)
     torch.cuda.synchronize()
+    gon.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         mrg(xt, k, m=50)
@@ -475,6 +674,17 @@ def phase_profile(torch, mrg, P, gen, n, d, k):
     print(f"profile: wall_ms={wall_ms:.3f} (profiler on) device_span_ms={span:.3f} "
           f"device_busy_ms={busy:.3f} idle_share_of_wall={1 - busy / wall_ms:.4f} "
           f"kernels={len(kernels)}", flush=True)
+    # one device kernel per GON iteration: no second reduce kernel and no
+    # gather of the next center (the gathers left are once a GON run)
+    steps = sum("gon_kernel" in e.name for e in kernels)
+    reduces = sum("gon_reduce" in e.name for e in kernels)
+    gathers = sum("index" in e.name.lower() for e in kernels)
+    check(steps == gon.launches and reduces == 0,
+          f"profile: {steps} GON kernels and {reduces} reduce kernels for "
+          f"{gon.launches} GON iterations")
+    print(f"profile: gon_iterations={gon.launches} gon_kernels={steps} "
+          f"gon_reduce_kernels={reduces} index_kernels={gathers} "
+          f"device_kernels_per_gon_iteration={steps / gon.launches:.2f}", flush=True)
     by_name = {}
     for e in kernels:
         ms, count = by_name.get(e.name, (0.0, 0))
@@ -586,7 +796,8 @@ def phase_streamed(torch, engine, P, counters):
                     return select_coreset(src, k, executor=ex, impl=impl)
             fn()                                   # warm-up
             res, launches, syncs, blocks, peak = counted_run(torch, fn, counters)
-            walls = wall_ms(torch, fn)
+            with gon_clock() as clock:
+                walls = wall_ms(torch, fn)
             ref = fn("ref")
             torch.cuda.synchronize()
             label = f"{label} k={k} super-shard rows={rows}"
@@ -624,6 +835,7 @@ def phase_streamed(torch, engine, P, counters):
                         f"representatives_differing={idiff}")
             print(f"{label}: ok {note} radius2={r2!r} ref_radius2={r2_ref!r} "
                   f"wall_ms={[round(w, 3) for w in walls]} launches={launches} "
+                  f"{gon_host_note(clock, len(walls), launches)} "
                   f"sync_warnings={len(syncs)} blocks_streamed={blocks} "
                   f"peak_MiB={peak / MiB:.2f} allowed_MiB={allowed / MiB:.2f} "
                   f"budget_MiB={None if budget is None else budget / MiB}",
@@ -650,6 +862,8 @@ def phase_streamed(torch, engine, P, counters):
     check(all(torch.equal(p.cpu(), q) for p, q in zip(ca, cb)),
           "streamed pokerlike select_coreset: card != CPU")
     # GON streamed over the source (no executor), its coreset and radius
+    gon = counters["gon_step"]
+    gon.launches = 0
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -658,6 +872,8 @@ def phase_streamed(torch, engine, P, counters):
     syncs = len(sync_warnings(caught))
     # one wait, at the end, for the per-row distances returned on the host
     check(syncs <= 1, f"streamed gonzalez: {syncs} synchronising calls")
+    # one GON launch per block and pass: 12 passes over 3 blocks
+    check(gon.launches == 36, f"streamed gonzalez: {gon.launches} GON launches, not 36")
     gb = gonzalez(src, 12, block_rows=1000, device="cpu")
     check(all(torch.equal(p.cpu(), q) for p, q in zip(ga, gb)),
           "streamed pokerlike gonzalez: card != CPU")
@@ -670,7 +886,8 @@ def phase_streamed(torch, engine, P, counters):
     check(ra.item() == rb.item(), "streamed pokerlike covering_radius: card != CPU")
     print("streamed mrg, select_coreset (with and without an executor), gonzalez "
           "and covering_radius, pokerlike n=3000 k=12 block_rows=1000: card "
-          f"(kernels) == CPU (plain) bitwise; streamed gonzalez sync_warnings={syncs}",
+          f"(kernels) == CPU (plain) bitwise; streamed gonzalez sync_warnings={syncs} "
+          "gon_launches=36 (one a block and pass)",
           flush=True)
     return totals
 
@@ -1006,7 +1223,8 @@ def phase_weighted(torch, engine, P, rng, counters):
         reads = kz_center.host_reads
         res, launches, syncs, blocks, peak = counted_run(torch, fn, counters)
         reads = kz_center.host_reads - reads
-        walls = wall_ms(torch, fn)
+        with gon_clock() as clock:
+            walls = wall_ms(torch, fn)
         ref = fn("ref")
         torch.cuda.synchronize()
         report_syncs(syncs)
@@ -1066,6 +1284,7 @@ def phase_weighted(torch, engine, P, rng, counters):
         print(f"{label} k={k}{f' z={KZ_Z}' if kind == 'kz' else ''}: ok {note} "
               f"radius2={r2!r} ref_radius2={r2_ref!r} "
               f"wall_ms={[round(w, 3) for w in walls]} launches={launches} "
+              f"{gon_host_note(clock, len(walls), launches)} "
               f"sync_warnings={len(syncs)} blocks_streamed={blocks} "
               f"peak_MiB={peak / MiB:.2f} allowed_MiB="
               f"{None if allowed is None else round(allowed / MiB, 2)} "
@@ -1235,6 +1454,82 @@ def phase_sketch_profile(torch, P):
     for name, (ms, count) in sorted(by_name.items(), key=lambda r: -r[1][0])[:8]:
         print(f"  {ms:9.4f} ms  {count:6d}x  {name[:90]}", flush=True)
 
+def times_of(src: str) -> int:
+    """``--times`` in one process: the GON step and the per-center argmin of
+    the ``repro_torch`` under ``src``, one JSON line per shape and call form.
+    GON ``call`` is the wrapper as its in-memory loop calls it (with a
+    workspace and the next center into a slot where the wrapper takes
+    them), ``iteration`` adds what else that loop ran on the card each step
+    (the next center's gather ``x[rows, far]`` where the kernel did not
+    write it); argmin ``fresh_carry`` is one launch on a fresh carry,
+    ``engine`` the engine's call (the carry's fill, the launch, unpacking)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(src))
+    from repro_torch.data import pointsets as P
+    from repro_torch.kernels import _build, engine, fused_argfar
+    from repro_torch.kernels.fused_stream import argmin_carry, fused_argmin_cuda
+    check("jax" not in sys.modules, "jax was imported")
+    _build.build()
+    rng = np.random.default_rng(0)
+    out = []
+    gon = fused_argfar.fused_min_argmax_cuda
+    for m, per, d, gen in GON_SHAPES:
+        xt = torch.from_numpy(generated(P, gen, m * per, d, 3)
+                              .reshape(m, per, d)).cuda()
+        md0 = (rng.random((m, per)) * 1e4).astype(np.float32)
+        md0[:, ::7] = NEG
+        md, ct = torch.from_numpy(md0).cuda(), xt[:, 11].contiguous()
+        rows = torch.arange(m, device=xt.device)
+        if hasattr(fused_argfar, "GonWorkspace"):
+            ws = fused_argfar.GonWorkspace(m, xt.device)
+            centers = torch.zeros((m, 2, d), device=xt.device)
+            indices = torch.zeros((m, 2), dtype=torch.int32, device=xt.device)
+            call = iteration = lambda: gon(xt, ct, md, ws=ws, centers=centers,
+                                           indices=indices, slot=1)
+        else:
+            call = lambda: gon(xt, ct, md)
+            iteration = lambda: xt[rows, gon(xt, ct, md)[2]]
+        for form, fn in (("call", call), ("iteration", iteration)):
+            out.append(dict(kernel="gon_step", shape=[m, per, d, gen], form=form,
+                            ms=device_ms(torch, fn)))
+    for n, m, d, gen in ARGMIN_SHAPES:
+        xt = torch.from_numpy(P.GENERATORS[gen](n, d=d, seed=5)).cuda()
+        ct = xt[torch.from_numpy(rng.choice(n, m, replace=False)).cuda()]
+        fresh = iter([argmin_carry(m, xt.device) for _ in range(23)])
+        for form, fn in (("fresh_carry", lambda: fused_argmin_cuda(xt, ct, next(fresh))),
+                         ("engine", lambda: engine.fused_argmin(xt, ct, impl="kernel"))):
+            out.append(dict(kernel="argmin_rows", shape=[n, m, d, gen], form=form,
+                            ms=device_ms(torch, fn, reps=20, warmup=3)))
+    for row in out:
+        print(json.dumps(dict(row, src=src)), flush=True)
+    return 0
+
+
+def compare_times(srcs) -> int:
+    """``--times``: ``times_of`` for each tree in turn, then one line per
+    shape and form with the trees' times in the order given."""
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip(), flush=True)
+    runs = []
+    for src in srcs:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--times-of", src], capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return proc.returncode
+        runs.append([json.loads(line) for line in proc.stdout.splitlines()
+                     if line.startswith("{")])
+    for rows in zip(*runs):
+        head = rows[0]
+        print(f"{head['kernel']} {tuple(head['shape'])} {head['form']}: "
+              + " ".join(f"{r['src']}={r['ms']:.5f}" for r in rows), flush=True)
+    return 0
+
 
 def main() -> int:
     import torch
@@ -1296,7 +1591,7 @@ def main() -> int:
     totals = phase_mrg(torch, mrg, counters, P)
     phase_small_vs_cpu(torch, mrg, P)
     for gen, n, d, k in PROFILE_CONFIGS:
-        phase_profile(torch, mrg, P, gen, n, d, k)
+        phase_profile(torch, mrg, P, gen, n, d, k, fused_min_argmax_cuda)
     counters.update(fused_filter=fused_filter_cuda, fused_assign=fused_assign_cuda,
                     argmin_rows=fused_argmin_cuda)
     stream_totals = phase_streamed(torch, engine, P, counters)
@@ -1365,4 +1660,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--times"] and len(sys.argv) > 2:
+        sys.exit(compare_times(sys.argv[2:]))
+    if sys.argv[1:2] == ["--times-of"] and len(sys.argv) == 3:
+        sys.exit(times_of(sys.argv[2]))
     sys.exit(main())

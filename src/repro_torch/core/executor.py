@@ -422,8 +422,8 @@ class HostStreamExecutor(Executor):
             return (centers, torch.ones((centers.shape[0],), dtype=torch.bool,
                                         device=centers.device),
                     torch.cat(wouts))
-        # each block's centers are a fresh tensor (GON gathers them), so
-        # nothing outlives the ring slot it came from
+        # each block's centers are a fresh tensor (the GON run's output, which
+        # its steps write), so nothing outlives the ring slot it came from
         outs = [fn(blk[None], None)[0] for blk in self._blocks(source, rows)]
         centers = torch.cat(outs)                            # (M*k, d)
         return centers, torch.ones((centers.shape[0],), dtype=torch.bool,

@@ -11,8 +11,8 @@ The JAX package maps GON over machine blocks with ``jax.vmap``; a
 hand-written kernel cannot be vmapped, so ``_gonzalez_device`` runs m
 machine blocks as a leading axis of one batched GON, and ``gonzalez`` on
 one ``(n, d)`` array is its m = 1 case. The k-loop never reads a tensor
-back to the host: the next center comes from the step's far index on the
-device.
+back to the host: each step writes the next center into the run's output
+on the device, and on the card each iteration is one kernel launch.
 """
 from __future__ import annotations
 
@@ -88,40 +88,45 @@ def _gonzalez_device(points: torch.Tensor, k: int, *, mask=None,
     """Batched GON over machine blocks ``points (m, per, d)`` with an
     optional ``mask (m, per)``. Returns a ``GonzalezResult`` whose fields
     carry the machine axis in front: ``centers (m, k, d)``, ``indices
-    (m, k)``, ``radius2 (m,)``, ``min_d2 (m, per)``."""
+    (m, k)``, ``radius2 (m,)``, ``min_d2 (m, per)``.
+
+    Step i reads its centers from slot i of the output and writes the far
+    points into slot i + 1: on the card each iteration is one launch, and
+    the run's outputs and scratch are allocated once, before the loop."""
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
-    m, per, _ = points.shape
+    m, per, d = points.shape
     points = points.to(torch.float32).contiguous()
     dev = points.device
-    rows = torch.arange(m, device=dev)
     md = torch.full((m, per), float(_BIG), dtype=torch.float32, device=dev)
+    centers = torch.empty((m, k, d), dtype=torch.float32, device=dev)
+    indices = torch.empty((m, k), dtype=torch.int32, device=dev)
     if mask is None:
         if not -per <= first < per:
             raise IndexError(f"first={first} out of range for {per} points")
-        first_idx = torch.full((m,), first % per, dtype=torch.int32, device=dev)
+        centers[:, 0] = points[:, first % per]
+        indices[:, 0] = first % per
     else:
         # first valid point (ignores `first` when a mask is given)
         first_idx = torch.argmax(mask.to(torch.uint8), dim=1).to(torch.int32)
+        centers[:, 0] = points[torch.arange(m, device=dev), first_idx]
+        indices[:, 0] = first_idx
         md.masked_fill_(~mask, float(_NEG))
 
     # The initial pass is a GON step from md = +BIG (valid) / _NEG (masked):
     # it leaves md = d2 to the first center on valid rows, _NEG elsewhere.
-    c = points[rows, first_idx]
-    centers, indices = [c], [first_idx]
-    md, _, far = ops.fused_min_argmax(points, c, md, impl=impl)
-    for _ in range(1, k):
-        # far == argmax(md), the index the reference recomputes here
-        c = points[rows, far]
-        centers.append(c)
-        indices.append(far)
-        md, _, far = ops.fused_min_argmax(points, c, md, impl=impl)
-
-    radius2 = torch.where(md <= float(_NEG) / 2, 0.0, md).amax(dim=1)
-    # masked-out points carry _NEG; clamp them to 0 for the covered-distance
-    # vector we hand back.
-    return GonzalezResult(torch.stack(centers, 1), torch.stack(indices, 1),
-                          radius2, md.clamp_min(0.0))
+    ws = ops.gon_workspace(m, points, impl=impl)
+    for i in range(k):
+        # the far point of step i is argmax(md), the center the reference
+        # picks next; step k - 1's slot k is past the end and not written
+        md, far_v, _ = ops.fused_min_argmax(points, centers[:, i], md, impl=impl,
+                                            ws=ws, centers=centers,
+                                            indices=indices, slot=i + 1)
+    # far_v = max(md): the covering radius, or _NEG on a machine with no
+    # valid row; masked-out points carry _NEG, clamped to 0 in the
+    # covered-distance vector we hand back.
+    return GonzalezResult(centers, indices, far_v.clamp_min(0.0),
+                          md.clamp_min(0.0))
 
 
 def _source_row(source, idx: int, rows: int) -> np.ndarray:
@@ -148,12 +153,16 @@ def _gonzalez_source(source, k: int, *, first: int = 0, impl: str = "auto",
     Each pass folds the GON step over the source's blocks: the running
     min-distance update and the search for the next center happen in the
     same pass. The running (value, global row, coordinates) of the farthest
-    point stays on the device and takes a block's far point on strict
-    ``>``, so the earliest block keeps a tie, as the in-memory argmax does:
-    no value is read back to the host in the loop. The per-point distances
-    (n floats) live in host memory, pinned where the device is CUDA, and
-    move to and from the device with each block on the current stream, so
-    the device holds only the ring's blocks and one block's distances.
+    point is a carry on the device that the step itself folds, taking a
+    block's far point on strict ``>`` (or unconditionally on the pass's
+    first block), so the earliest block keeps a tie, as the in-memory
+    argmax does; every block also copies the carry into the next center's
+    slot, which no block of the pass reads (the pass reads its own slot).
+    So a block is one launch, and no value is read back to the host in the
+    loop. The per-point distances (n floats) live in host memory, pinned
+    where the device is CUDA, and move through one block-sized device
+    buffer with each block on the current stream, so the device holds only
+    the ring's blocks and one block's distances.
     """
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
@@ -161,40 +170,36 @@ def _gonzalez_source(source, k: int, *, first: int = 0, impl: str = "auto",
     n, d = source.n, source.d
     rows = ops.resolve_block_rows(n, d, block_rows=block_rows,
                                   memory_budget=memory_budget)
-    md_host = torch.empty((n,), dtype=torch.float32,
-                          pin_memory=dev.type == "cuda")
+    # +BIG before the first pass: its GON step leaves md = d2 to the first center
+    md_host = torch.full((n,), float(_BIG), dtype=torch.float32,
+                         pin_memory=dev.type == "cuda")
+    md = torch.empty((1, rows), dtype=torch.float32, device=dev)
+    centers = torch.empty((1, k, d), dtype=torch.float32, device=dev)
+    indices = torch.empty((1, k), dtype=torch.int32, device=dev)
     row = torch.from_numpy(_source_row(source, first, rows))
     if dev.type == "cuda":
         row = row.pin_memory()      # so that the upload does not wait
-    best_row = row.to(dev, non_blocking=True)
-    best_i = torch.full((), first, dtype=torch.int64, device=dev)
-    centers, indices = [], []
+    centers[0, 0].copy_(row, non_blocking=True)
+    indices[:, 0] = first
+    carry = (torch.empty((1,), dtype=torch.float32, device=dev),
+             torch.empty((1,), dtype=torch.int64, device=dev),
+             torch.empty((1, d), dtype=torch.float32, device=dev))
+    ws = ops.gon_workspace(1, md, impl=impl)
     for i in range(k):
-        c = best_row
-        centers.append(c)
-        indices.append(best_i)
-        best_v = torch.full((), float("-inf"), device=dev)
         off = 0
         for blk in engine._source_blocks(source, rows, None, dev):
             nb = blk.shape[0]
-            if i == 0:   # a GON step from +BIG leaves md = d2 to the first center
-                md = torch.full((1, nb), float(_BIG), device=dev)
-            else:
-                md = md_host[off:off + nb].to(dev, non_blocking=True)[None]
-            md, v, bi = ops.fused_min_argmax(blk[None], c[None], md, impl=impl)
-            md_host[off:off + nb].copy_(md[0], non_blocking=True)
-            take = v[0] > best_v
-            best_v = torch.where(take, v[0], best_v)
-            best_i = torch.where(take, bi[0].to(torch.int64) + off, best_i)
-            # index_select, not blk[bi[0]]: a 0-d index is read on the host
-            best_row = torch.where(take, blk.index_select(0, bi)[0], best_row)
+            mdb = md[:, :nb]
+            mdb[0].copy_(md_host[off:off + nb], non_blocking=True)
+            ops.fused_min_argmax(blk[None], centers[:, i], mdb, impl=impl, ws=ws,
+                                 centers=centers, indices=indices, slot=i + 1,
+                                 carry=carry, off=off, reset=off == 0)
+            md_host[off:off + nb].copy_(mdb[0], non_blocking=True)
             off += nb
     if dev.type == "cuda":
         # the host reads md_host below: wait for the last block's copy back
         torch.cuda.current_stream(dev).synchronize()
-    radius2 = torch.clamp_min(best_v, 0.0)
-    return GonzalezResult(torch.stack(centers),
-                          torch.stack(indices).to(torch.int32), radius2,
+    return GonzalezResult(centers[0], indices[0], torch.clamp_min(carry[0][0], 0.0),
                           md_host.clamp_min(0.0))
 
 

@@ -2,8 +2,8 @@
 PyTorch versions.
 
 Modules:
-  fused_argfar.py — GON step: dist + running min + arg-farthest, batched
-                    over machines (csrc/gon_step.cu)
+  fused_argfar.py — GON step: dist + running min + arg-farthest and the
+                    next center, batched over machines (csrc/gon_step.cu)
   assign.py       — nearest-center assignment, 2-D and batched over
                     machines (csrc/assign.cu)
   fused_stream.py — the streamed folds' kernels: the filter and its

@@ -108,9 +108,22 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code}: {msg}")
 
 
+# Dynamic shared memory a block may use on Hopper (cudaFuncSetAttribute),
+# the bound of the kernels' launch plans, and the shared memory of an SM
+# (228 KB), which the CTAs resident on it share (1 KB reserved a CTA).
+SMEM_LIMIT = 232_448
+SMEM_PER_SM = 233_472
+
+
 @functools.lru_cache(maxsize=None)
 def _capability(index: int) -> tuple[int, int]:
     return torch.cuda.get_device_capability(index)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def require_hopper(*tensors: torch.Tensor) -> torch.device:

@@ -31,7 +31,7 @@ from repro_torch.device import as_points, resolve_device, upload
 
 from . import ref
 from .assign import assign_nearest_batched_cuda, assign_nearest_cuda
-from .fused_argfar import fused_min_argmax_cuda
+from .fused_argfar import GonWorkspace, fused_min_argmax_cuda
 from .fused_stream import (argmin_carry, fused_argmin_cuda, fused_assign_cuda,
                            fused_filter_cuda, fused_filter_w_cuda,
                            unpack_argmin)
@@ -83,14 +83,29 @@ def pairwise_dist2(x, c, *, impl: str = "auto", chunk: int | None = None):
     return pairwise_dist2_ref(x, c)
 
 
-def fused_min_argmax(x, c, md, *, impl: str = "auto"):
+def gon_workspace(m: int, x, *, impl: str = "auto"):
+    """Scratch for a GON run of ``m`` machines over ``x``: a
+    ``GonWorkspace`` on the kernel route (made once a run, so that a step
+    allocates nothing), ``None`` on the plain one."""
+    return GonWorkspace(m, x.device) if _resolve(impl, x) else None
+
+
+def fused_min_argmax(x, c, md, *, impl: str = "auto", ws=None, centers=None,
+                     indices=None, slot: int = -1, carry=None, off: int = 0,
+                     reset: bool = False):
     """Batched GON step: ``x (m, per, d)``, ``c (m, d)``, ``md (m, per)`` ->
     ``(md, far_val (m,), far_idx (m,) int32)``. ``md`` is updated in place
     on both routes. Rows whose ``md`` is -3.4e38 (padding, masked rows)
-    stay so and never win unless every row of a machine is such a row."""
+    stay so and never win unless every row of a machine is such a row.
+    The next center goes to a ``centers``/``indices`` slot and a streamed
+    pass's ``carry`` on the device (see ``ref.fused_min_argmax``); ``ws``
+    is the run's ``gon_workspace``, whose buffers hold the kernel route's
+    ``far_val``/``far_idx`` until its next step."""
+    out = dict(centers=centers, indices=indices, slot=slot, carry=carry,
+               off=off, reset=reset)
     if _resolve(impl, x):
-        return fused_min_argmax_cuda(x, c, md)
-    return ref.fused_min_argmax(x, c, md)
+        return fused_min_argmax_cuda(x, c, md, ws=ws, **out)
+    return ref.fused_min_argmax(x, c, md, **out)
 
 
 def assign_nearest(x, c, *, impl: str = "auto"):

@@ -22,7 +22,8 @@ per-block passes of the source folds (``engine.fold_min_d2``,
     because its assign tiles the centers over a sequential grid axis).
   * ``fused_argmin_cuda`` (``csrc/argmin_rows.cu``) for
     ``fused_argmin_blocks``: per center the nearest row, folded into a
-    packed (d2, row) carry across blocks.
+    packed (d2, row) carry across blocks; register-tiled (8 rows × up to 8
+    centers a thread), its launch shape from ``argmin_plan``.
 
 All of them share ``csrc/dist2.cuh``, so every (row, center) pair rounds as in
 ``assign.cu`` and a streamed radius equals the in-memory one bitwise. The
@@ -32,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -67,9 +69,61 @@ def _filter_lib():
 @functools.lru_cache(maxsize=None)
 def _argmin_lib():
     lib = _build.library("argmin_rows")
-    lib.repro_argmin_rows.argtypes = [_P] * 3 + [_I] * 5 + [_P]
+    lib.repro_argmin_rows.argtypes = [_P] * 3 + [_I] * 9 + [_P]
     lib.repro_argmin_rows.restype = _I
+    lib.repro_argmin_ctas_per_sm.argtypes = [_I, _I]
+    lib.repro_argmin_ctas_per_sm.restype = _I
     return lib
+
+
+def argmin_ctas_per_sm(tc: int, smem: int) -> int:
+    """CTAs of the tiled argmin kernel (``tc`` centers a thread) that one SM
+    of the current device holds at ``smem`` dynamic bytes (``argmin_plan``
+    counts on 2)."""
+    ctas = _argmin_lib().repro_argmin_ctas_per_sm(tc, smem)
+    if ctas < 0:
+        _build.check(_argmin_lib(), -ctas, "argmin_rows occupancy")
+    return ctas
+
+
+class ArgminPlan(NamedTuple):
+    tc: int          # centers a thread (16·tc a CTA); 0: the wide kernel
+    sub: int         # 128-row sub-tiles of a stage
+    ctiles: int      # center tiles (the grid's second axis)
+    grid_x: int      # CTAs along the rows
+    smem: int        # dynamic shared bytes (the tiled kernel)
+
+
+_ARGMIN_ROWS = 128              # csrc/argmin_rows.cu kRows
+_ARGMIN_STAGE_BYTES = 16 * 1024
+_ARGMIN_KEYS_BYTES = 4 * 128 * 8  # the tiled kernel's static shared keys
+
+
+@functools.lru_cache(maxsize=1024)
+def argmin_plan(n: int, m: int, d: int, sms: int) -> ArgminPlan:
+    """Launch shape of the per-center argmin on ``sms`` SMs. A stage holds
+    128·sub rows (sub = 1..8, about 16 KB). The centers split into tiles of
+    16·tc (tc = 1..8): ceil(m / 128) tiles, as even as they allow, or more
+    and smaller tiles where two row stages and the center tile would not
+    fit a block's shared memory. The CTAs along the rows fill the SMs (two
+    a SM, one where the shared memory holds no more). Where not even 16
+    centers fit (d past 202), tc = 0 takes the wide kernel (4 CTAs a SM,
+    tiles of up to 1,024 rows and 32 KB)."""
+    sub = max(1, min(8, _ARGMIN_STAGE_BYTES // (_ARGMIN_ROWS * 4 * d)))
+    rows_stage = _ARGMIN_ROWS * sub
+    for most in range(8, 0, -1):       # centers a thread, at most
+        ctiles = -(-m // (16 * most))
+        tc = -(-(-(-m // ctiles)) // 16)
+        smem = 4 * (2 * d * (rows_stage + 4) + rows_stage + d * (16 * tc + 1)
+                    + 16 * tc)
+        if smem + _ARGMIN_KEYS_BYTES <= _build.SMEM_LIMIT:
+            fit = 2 * (smem + _ARGMIN_KEYS_BYTES + 1024) <= _build.SMEM_PER_SM
+            ctas = 2 if fit else 1
+            stages = -(-n // rows_stage)
+            return ArgminPlan(tc, sub, ctiles,
+                              min(stages, -(-ctas * sms // ctiles)), smem)
+    tile = min(1024, _TILE_FLOATS // (d + 1))
+    return ArgminPlan(0, 0, 1, min(-(-n // tile), 4 * sms), 0)
 
 
 def _check_points(x: torch.Tensor, c: torch.Tensor):
@@ -202,10 +256,12 @@ def fused_argmin_cuda(x: torch.Tensor, c: torch.Tensor, carry: torch.Tensor,
         raise ValueError(f"unsupported sizes off={off}, n={n}, m={m}, d={d}")
     if n == 0:
         return carry
+    plan = argmin_plan(n, m, d, _build.sm_count(dev.index))
     lib = _argmin_lib()
     code = lib.repro_argmin_rows(
-        x.data_ptr(), c.data_ptr(), carry.data_ptr(), n, m, d, off,
-        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        x.data_ptr(), c.data_ptr(), carry.data_ptr(), n, m, d, off, plan.tc,
+        plan.sub, plan.grid_x, plan.smem, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, "argmin_rows")
     fused_argmin_cuda.launches += 1
     return carry

@@ -7,6 +7,7 @@ from . import engine, ref  # noqa: F401  (ops.ref is public API)
 dist2_to_center = engine.dist2_to_center
 pairwise_dist2 = engine.pairwise_dist2
 fused_min_argmax = engine.fused_min_argmax
+gon_workspace = engine.gon_workspace
 assign_nearest = engine.assign_nearest
 assign_nearest_batched = engine.assign_nearest_batched
 argmin_dist2_over_rows = engine.argmin_dist2_over_rows

@@ -38,7 +38,9 @@ def pairwise_dist2(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(d2, 0.0)
 
 
-def fused_min_argmax(x: torch.Tensor, c: torch.Tensor, md: torch.Tensor):
+def fused_min_argmax(x: torch.Tensor, c: torch.Tensor, md: torch.Tensor, *,
+                     centers=None, indices=None, slot: int = -1, carry=None,
+                     off: int = 0, reset: bool = False):
     """One Gonzalez iteration on each of m machine blocks.
 
     ``x (m, per, d)``, the new centers ``c (m, d)`` and the running
@@ -46,10 +48,34 @@ def fused_min_argmax(x: torch.Tensor, c: torch.Tensor, md: torch.Tensor):
     ``min(md, |x - c|^2)`` (as the CUDA kernel does) and returns
     ``(md, far_val (m,), far_idx (m,) int32)``: per machine, the farthest
     row under the updated distances, first occurrence on ties.
+
+    The next center is written on the device, as the kernel writes it:
+    with a ``carry = (best_v (m,), best_i (m,) int64, best_row (m, d))``
+    (a streamed pass over blocks whose row 0 is global row ``off``) the far
+    point replaces the carry when ``reset`` (the pass's first block) or
+    on strict ``far_val > best_v``, so the earliest block keeps a tie; with
+    ``centers (m, k, d)`` and ``indices (m, k)`` int32, slot ``slot`` (when
+    ``0 <= slot < k``) gets the far row ``x[b, far_idx]`` and its index
+    ``off + far_idx``, or the carry's after the fold. ``c`` must not alias
+    that slot.
     """
     torch.minimum(md, dist2_to_center(x, c), out=md)
     idx = torch.argmax(md, dim=-1)
     val = md.gather(-1, idx.unsqueeze(-1)).squeeze(-1)
+    write = centers is not None and 0 <= slot < centers.shape[1]
+    if carry is not None or write:
+        row = x.gather(1, idx.view(-1, 1, 1).expand(-1, 1, x.shape[2]))[:, 0]
+        gidx = idx + off
+    if carry is not None:
+        best_v, best_i, best_row = carry
+        take = torch.ones_like(val, dtype=torch.bool) if reset else val > best_v
+        best_v.copy_(torch.where(take, val, best_v))
+        best_i.copy_(torch.where(take, gidx, best_i))
+        best_row.copy_(torch.where(take[:, None], row, best_row))
+        row, gidx = best_row, best_i
+    if write:
+        centers[:, slot] = row
+        indices[:, slot] = gidx.to(torch.int32)
     return md, val, idx.to(torch.int32)
 
 

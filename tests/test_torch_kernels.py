@@ -8,16 +8,22 @@ included; general float inputs match within tests/test_kernels.py's
 tolerances, with indices compared where the winner is unique by 1e-5.
 The CUDA kernels themselves run only on the card (chip_smoke.py).
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import gonzalez as jgonzalez
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch import interop
+from repro_torch.core.gonzalez import _gonzalez_device
 from repro_torch.kernels import _build, engine
 from repro_torch.kernels.assign import assign_nearest_cuda
-from repro_torch.kernels.fused_argfar import fused_min_argmax_cuda
+from repro_torch.kernels._build import SMEM_LIMIT
+from repro_torch.kernels.fused_argfar import (MAX_CTAS_PER_SM, fused_min_argmax_cuda,
+                                              gon_plan)
+from repro_torch.kernels.fused_stream import argmin_plan
 
 _NEG = np.float32(-3.4e38)
 
@@ -40,15 +46,25 @@ def _gon_inputs(m, per, d, tier, seed=0):
 
 
 @pytest.mark.parametrize("jimpl", ["ref", "pallas"])
-@pytest.mark.parametrize("tier,d", [("exact", 5), ("float", 2), ("float", 7)])
+@pytest.mark.parametrize("tier,d", [("exact", 5), ("float", 2), ("float", 7),
+                                    ("exact", 38)])
 def test_gon_step_matches_jax_per_machine(jimpl, tier, d):
     m, per = 4, 300
     x, c, md = _gon_inputs(m, per, d, tier)
     st = interop.state_from_jax({"x": x, "c": c, "md": md}, "cpu")
-    new_md, far_v, far_i = engine.fused_min_argmax(st["x"], st["c"], st["md"],
-                                                   impl="ref")
+    # the path's form: the next center goes to slot 1 of (m, k, d) outputs
+    centers = torch.full((m, 3, d), -1.0)
+    indices = torch.full((m, 3), -1, dtype=torch.int32)
+    new_md, far_v, far_i = engine.fused_min_argmax(
+        st["x"], st["c"], st["md"], impl="ref", centers=centers,
+        indices=indices, slot=1)
     assert new_md.data_ptr() == st["md"].data_ptr()     # in place
     assert far_i.dtype == torch.int32 and far_v.shape == (m,)
+    rows = torch.arange(m)
+    assert torch.equal(indices[:, 1], far_i)
+    assert torch.equal(far_i.long(), torch.argmax(new_md, dim=1))
+    assert torch.equal(centers[:, 1], st["x"][rows, far_i.long()])
+    assert (centers[:, [0, 2]] == -1).all() and (indices[:, [0, 2]] == -1).all()
     for b in range(m):
         jm, jv, ji = jops.fused_min_argmax(x[b], c[b], md[b], impl=jimpl,
                                            bn=64)
@@ -97,10 +113,59 @@ def test_assign_nearest_matches_jax(jimpl, tier, n, k, d):
         np.testing.assert_array_equal(idx.numpy()[unique], jidx[unique])
 
 
+@pytest.mark.parametrize("tier,masked", [("exact", True), ("float", False)])
+def test_gon_slots_match_jax_gonzalez_device(tier, masked):
+    # the batched loop (step i reads slot i, writes slot i + 1) against the
+    # JAX package's GON on each machine
+    m, per, d, k = 3, 200, 4, 7
+    rng = np.random.default_rng(7)
+    x = _points(rng, (m, per, d), tier)
+    mask = rng.random((m, per)) < 0.7 if masked else None
+    got = _gonzalez_device(torch.from_numpy(x), k, impl="ref",
+                           mask=None if mask is None else torch.from_numpy(mask))
+    assert got.centers.shape == (m, k, d) and got.indices.dtype == torch.int32
+    for b in range(m):
+        want = jgonzalez(jnp.asarray(x[b]), k, impl="ref",
+                         mask=None if mask is None else jnp.asarray(mask[b]))
+        np.testing.assert_array_equal(got.indices[b].numpy(), np.asarray(want.indices))
+        np.testing.assert_array_equal(got.centers[b].numpy(), np.asarray(want.centers))
+        if tier == "exact":
+            assert got.radius2[b].numpy() == np.asarray(want.radius2)
+        else:
+            np.testing.assert_allclose(float(got.radius2[b]),
+                                       float(want.radius2), rtol=1e-6)
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 38, 65, 128, 130, 202])
+def test_launch_plans_fit_shared_memory(d):
+    # the wrappers' launch plans, for the H100's 132 SMs
+    sms = 132
+    for m in (1, 25, 50, 100, 129, 300, 1000):
+        for per in (1, 3_000, 20_000, 573_580):
+            plan = gon_plan(m, per, d, sms)
+            assert plan.smem <= SMEM_LIMIT
+            assert plan.tile_rows * d * 4 <= 36 * 1024 or plan.tile_rows == 1
+            assert plan.ntiles * plan.tile_rows >= per
+            assert 1 <= plan.grid <= min(m * plan.ntiles, MAX_CTAS_PER_SM * sms)
+            # every CTA holds one machine's tiles where the CTAs outnumber m
+            if plan.grid >= m:
+                assert plan.grid % m == 0
+        a = argmin_plan(573_580, m, d, sms)
+        assert a.tc >= 1, "d <= 202 takes the tiled kernel"
+        assert a.smem + 4 * 128 * 8 <= SMEM_LIMIT
+        assert 16 * a.tc * a.ctiles >= m and 16 * a.tc <= 128
+        assert a.grid_x * a.ctiles <= 2 * sms + a.ctiles
+        if d <= 130:            # the path's widths keep the widest center tiles
+            assert a.ctiles == -(-m // 128)
+    assert argmin_plan(100, 5, 203, sms).tc == 0        # the wide kernel
+    assert argmin_plan(100, 5, 1000, sms).tc == 0
+
+
 def test_dispatch_auto_ref_kernel_on_cpu():
     x, c, md = _gon_inputs(2, 40, 3, "exact")
     xt, ct = torch.from_numpy(x), torch.from_numpy(c)
     before = (fused_min_argmax_cuda.launches, assign_nearest_cuda.launches)
+    assert engine.gon_workspace(2, xt) is None          # the plain route's
     a = engine.fused_min_argmax(xt, ct, torch.from_numpy(md.copy()))
     b = engine.fused_min_argmax(xt, ct, torch.from_numpy(md.copy()),
                                 impl="ref")

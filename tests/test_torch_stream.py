@@ -292,15 +292,21 @@ def test_mrg_default_executor_and_multiround_capacity():
     np.testing.assert_array_equal(got.centers.numpy(), np.asarray(want.centers))
 
 
-@pytest.mark.parametrize("gen", ["gau", "pokerlike"])
-def test_gonzalez_and_covering_radius_over_a_source(gen):
+@pytest.mark.parametrize("gen,tie", [("gau", False), ("pokerlike", False),
+                                     ("pokerlike", True)])
+def test_gonzalez_and_covering_radius_over_a_source(gen, tie):
     exact = gen == "pokerlike"
     x = (pointsets.pokerlike(600, seed=4) if exact
          else pointsets.gau(600, seed=4))
+    if tie:     # the farthest point twice, in blocks 0 and 2 of 3
+        x[100] = x[520] = 1000.0
+    # the streamed carry over 3 blocks (256, 256, 88 rows)
     got = gonzalez(HostSource(x), 8, block_rows=256, device="cpu")
     want = jgonzalez(jsource.HostSource(x), 8, impl="ref", block_rows=256)
     np.testing.assert_array_equal(got.indices.numpy(), np.asarray(want.indices))
     np.testing.assert_array_equal(got.centers.numpy(), np.asarray(want.centers))
+    if tie:     # strict >: the earlier block keeps the tie
+        assert int(got.indices[1]) == 100
     assert got.indices.dtype == torch.int32 and got.min_d2.shape == (600,)
     # the streamed form picks what the in-memory form picks
     mem = gonzalez(x, 8, device="cpu")
