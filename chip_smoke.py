@@ -17,8 +17,14 @@ Phases, each of which raises on failure (nothing is caught):
               a run's workspace, the next center into a slot; edge cases:
               a misaligned machine stride, a masked machine, a tie across
               CTAs, two runs on one workspace, the streamed carry over 3
-              blocks), 2b assign (in-memory path); 2c filter, 2d streamed
-              assign, 2e per-center argmin (streamed path, at the
+              blocks), 2b assign (in-memory path; both assign kernels
+              timed at shapes on each side of the plan's routing); 2c
+              filter, 2d streamed assign and the assign's edge cases (d
+              up to 1000, k up to
+              2,000, n = 1 and below a stage, equidistant centers across
+              center lanes and tiles, the sums entry's counts and integer
+              weights against the plain assign and index_add_, a machine
+              of zero weights), 2e per-center argmin (streamed path, at the
               super-shards that HostStreamExecutor(memory_budget=...)
               resolves; edge cases: m up to 300, d up to 1000 (smaller
               center tiles at 200, the wide kernel at 1000), n below a
@@ -45,20 +51,24 @@ Phases, each of which raises on failure (nothing is caught):
   2g, 2h, 2i (run with phase 2) — the weighted filter (fused_filter.cu's
               weighted entry) at ranks 1, 101 and 300 with integer weights,
               unit weights against the plain kernel, and the plain filter
-              at rank 300; the batched assign against the 2-D entry; the
-              pairwise kernel in f32 and f16;
+              at rank 300; the batched assign against the 2-D entry, and its
+              sums entry (the weighted reducer's cluster weights) against the
+              plain assign and index_add_; the pairwise kernel in f32 and f16;
   7. the weighted objective and (k,z)-center: kz_center in memory and out
               of core (a weighted host source with planted outliers, a
               1e7-point generator, an exact-tier input), weighted mrg and
               weighted select_coreset, against impl="ref" on the card, with
               launches, synchronising calls (kz_center: exactly its one
               coreset read), wall time, host time per GON iteration and
-              peak device memory;
+              peak device memory; select_coreset in memory (kddlike
+              n = 400,000, k = 100) against impl="ref";
   8. the streaming sketch over the 1e7-point generator and the kddlike host
               source, both insertion tails, against impl="ref" on the card:
               coverage passes, launches, synchronising calls, host time of
               the insertion tail apart from the coverage passes;
-  9. profiles of one streamed kz_center run and one sketch run.
+  9. profiles of one streamed kz_center run (no index_add_ or scatter
+              kernel: the cluster weights are summed inside the assign) and
+              one sketch run.
 
 Prints the card's name and power limit, one JSON line describing every
 kernel, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -66,16 +76,20 @@ without a CUDA device, and where the repository's package is missing.
 
     python3 chip_smoke.py --times SRC [SRC ...]
 
-times only the GON step and the per-center argmin at their path shapes, in
-call forms that every version of the two kernels takes, for the
-``repro_torch`` under each ``SRC`` directory in turn (one process each, in
-the order given), and prints them side by side. To compare a change with its
-parent on one card, unpack the parent with ``git archive`` into a git-ignored
-directory and name the trees parent, change, change, parent.
+times the GON step, the per-center argmin, the assign (2-D, streamed and
+batched, alone and with the cluster sums) and in-memory select_coreset's
+representative pass at their path shapes, in call forms that every version
+of the kernels takes, for the ``repro_torch`` under each ``SRC`` directory in
+turn (one process each, in the order given), and prints them side by side
+with a SHA-1 digest of each form's outputs, so that equal digests show
+bitwise equal results. To compare a change with its parent on one card,
+unpack the parent with ``git archive`` into a git-ignored directory and name
+the trees parent, change, change, parent.
 """
 from __future__ import annotations
 
 import functools
+import hashlib
 import json
 import os
 import statistics
@@ -328,6 +342,8 @@ def phase_assign(torch, P, rng, results, name, op, shapes, title, seed):
     tolerance and the index equal where the nearest center is unique."""
     print(title, flush=True)
     from repro_torch.kernels import ref
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.assign import assign_plan
     for n, k, d, gen in shapes:
         for tier in ("exact", "float"):
             x = (exact_points(rng, (n, d)) if tier == "exact"
@@ -362,14 +378,159 @@ def phase_assign(torch, P, rng, results, name, op, shapes, title, seed):
             lib = device_ms(torch, lambda: torch.cdist(xt, ct).min(1))
             nbytes = 4 * (n * d + k * d + 2 * n)
             b_ms, b_by = bound(nbytes, n * k * (2 * d + 5) + 2 * d * (n + k))
+            plan = assign_plan(n, k, d, sm_count(0))
             print(f"{name} n={n} k={k} d={d} {tier}: ok max_abs_err={err:.3g} "
                   f"kernel_ms={ms:.5f} plain_ms={plain:.5f} library_ms={lib:.5f} "
-                  f"(torch.cdist(x, c).min(1)) bound_ms={b_ms:.5f} ({b_by}){note}",
-                  flush=True)
+                  f"(torch.cdist(x, c).min(1)) bound_ms={b_ms:.5f} ({b_by}){note} "
+                  f"plan={tuple(plan)}", flush=True)
             results.append(dict(kernel=name, shape=(n, k, d, gen),
                                 tier=tier, err=err,
                                 ms=ms, plain_ms=plain, bound_ms=b_ms,
                                 bound_by=b_by, library_ms=lib))
+
+
+# The assign plan's routing (assign.WIDE_MAX_D, WIDE_MAX_KD): shapes on
+# both sides of it, 1e6 rows of unif at each (k, d), a unif super-shard and
+# the in-memory weighted reducer's batch.
+ROUTING_SHAPES = ([(1, 1_000_000, 25, d) for d in (2, 4, 8, 12, 16, 24)]
+                  + [(1, 1_000_000, 100, d) for d in (2, 4, 6, 8)]
+                  + [(1, 1_864_135, 25, 2), (50, 20_000, 125, 2)])
+
+
+def assign_routing(torch, engine, P, rng):
+    """Times the assign as the plan routes it against the other kernel at
+    ``ROUTING_SHAPES``, alone and with the sums (integer weights), each pair
+    in one call: the evidence for the plan's routing of small widths and
+    small k·d to the wide kernel. The other kernel is the plan with the
+    routing thresholds set to 0 (the tiled kernel) or taken from the wide
+    side; both give bitwise the same outputs, checked here."""
+    from repro_torch.kernels import assign
+    from repro_torch.kernels._build import sm_count
+    print("assign routing (kernel_ms as planned / the other kernel; "
+          "with the sums):", flush=True)
+
+    def forced(tiled: bool):
+        assign.assign_plan.cache_clear()
+        assign.WIDE_MAX_D, assign.WIDE_MAX_KD = (0, 0) if tiled else (1 << 30, 1 << 30)
+
+    saved = assign.WIDE_MAX_D, assign.WIDE_MAX_KD
+    try:
+        for m, n, k, d in ROUTING_SHAPES:
+            x = P.unif(m * n, d=d, seed=7).reshape(m, n, d)
+            xt = cuda_t(torch, x)
+            ct = xt[:, :k].contiguous()
+            wt = cuda_t(torch, int_weights(rng, m * n).reshape(m, n))
+            acc = torch.zeros((m, k), device="cuda")
+            times, outs = {}, {}
+            for tiled in (True, False):
+                forced(tiled)
+                outs[tiled] = engine.assign_nearest_batched(xt, ct, impl="kernel")
+                times[tiled] = (
+                    device_ms(torch, lambda: engine.assign_nearest_batched(
+                        xt, ct, impl="kernel")),
+                    device_ms(torch, lambda: engine.assign_sums(
+                        xt, ct, acc, wt, impl="kernel")))
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(outs[True], outs[False])),
+                  f"assign routing m={m} n={n} k={k} d={d}: the kernels differ")
+            assign.WIDE_MAX_D, assign.WIDE_MAX_KD = saved
+            assign.assign_plan.cache_clear()
+            chosen = assign.assign_plan(n, k, d, sm_count(0), m).tc > 0
+            t, o = times[chosen], times[not chosen]
+            print(f"  m={m} n={n} k={k} d={d}: planned={'tiled' if chosen else 'wide'} "
+                  f"kernel_ms={t[0]:.5f} other_ms={o[0]:.5f} sums_ms={t[1]:.5f} "
+                  f"other_sums_ms={o[1]:.5f} (bitwise equal)", flush=True)
+    finally:
+        assign.WIDE_MAX_D, assign.WIDE_MAX_KD = saved
+        assign.assign_plan.cache_clear()
+
+
+def assign_edge_cases(torch, engine, rng):
+    """The assign kernel's edge cases, bitwise on the exact tier through the
+    2-D, streamed and batched entries and the sums entry: widths past the
+    register limit, smaller center tiles (d = 200) and the wide kernel (d =
+    1000); k from 1 to 2,000 (several center tiles, chunks of them past the
+    shared memory); n = 1 and n below one stage; two centers planted
+    equidistant from a row, in two center lanes of one tile and in two
+    tiles (or chunks), where the first must win; the sums (counts and
+    integer weights) against the plain assign and index_add_, with and
+    without the idx and d2 outputs; a batch with a machine of zero
+    weights."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.assign import assign_plan, assign_sums_cuda
+    cases = [(50_000, k, d) for k in (1, 17, 129, 300) for d in (65, 130)]
+    cases += [(50_000, 17, 200), (20_000, 300, 200), (20_000, 2_000, 38),
+              (20_000, 129, 3), (5_000, 17, 1000), (2_000, 300, 1000),
+              (1, 5, 3), (1, 300, 38), (100, 25, 2), (90, 7, 38), (1_000, 129, 38)]
+    seen = []
+    for n, k, d in cases:
+        x = exact_points(rng, (n, d))
+        c = exact_points(rng, (k, d))
+        plan = assign_plan(n, k, d, sm_count(0), 1, True)
+        # off the grid of [0, 50): only the planted centers lie near; (3, 4)
+        # are two center lanes of a tile, (1, k - 1) two tiles where k
+        # passes one (two chunks at k = 2,000, d = 38)
+        planted = []
+        if k >= 6 and n >= 6:
+            planted = [(5, 60.0, 3, 4), (n - 1, 70.0, 1, k - 1)]
+        elif k >= 2:
+            planted = [(0, 60.0, 0, 1)]
+        for r, v, a, b in planted:
+            x[r] = v
+            c[a], c[b] = v, v
+            c[a, 0], c[b, 0] = v + 1.0, v - 1.0      # d2 = 1 from row r, both
+        xt, ct = cuda_t(torch, x), cuda_t(torch, c)
+        w = cuda_t(torch, rng.integers(0, 5, n).astype(np.float32))
+        want = engine.assign_nearest(xt, ct, impl="ref")
+        got = [engine.assign_nearest(xt, ct, impl="kernel"),
+               engine.fused_assign(xt, ct, impl="kernel"),
+               [t[0] for t in engine.assign_nearest_batched(xt[None], ct[None],
+                                                            impl="kernel")]]
+        sums = []
+        for ww in (None, w):
+            dtype = torch.int32 if ww is None else torch.float32
+            plain = ref.assign_sums(xt, ct, torch.zeros(k, dtype=dtype, device="cuda"), ww)
+            outs = (torch.empty(n, dtype=torch.int32, device="cuda"),
+                    torch.empty(n, device="cuda"))
+            sums += [(engine.assign_sums(xt, ct, torch.zeros_like(plain), ww,
+                                         impl="kernel"), plain),
+                     (engine.assign_sums(xt[None], ct[None], torch.zeros_like(plain)[None],
+                                         None if ww is None else ww[None],
+                                         impl="kernel")[0], plain),
+                     (assign_sums_cuda(xt, ct, torch.zeros_like(plain), ww, idx=outs[0],
+                                       d2=outs[1]), plain)]
+            got.append(outs)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g[0], want[0]) and torch.equal(g[1], want[1]) for g in got),
+              f"assign edge n={n} k={k} d={d}: not bitwise the plain version")
+        check(all(torch.equal(a, b) for a, b in sums),
+              f"assign edge n={n} k={k} d={d}: sums not bitwise the plain assign + index_add_")
+        for r, _, a, _ in planted:
+            check(int(got[0][0][r]) == a,
+                  f"assign edge n={n} k={k} d={d}: equidistant centers, row {r} took "
+                  f"{int(got[0][0][r])}, not the first, {a}")
+        seen.append((n, k, d, tuple(plan)[:3]))
+    # a batch whose machine 1 weighs nothing: its sums stay 0
+    for m, per, t, d in ((3, 5_000, 17, 38), (3, 20_001, 125, 2)):
+        x = exact_points(rng, (m, per, d))
+        xt = cuda_t(torch, x)
+        ct = xt[:, :t].contiguous()
+        w = cuda_t(torch, rng.integers(0, 5, (m, per)).astype(np.float32))
+        w[1] = 0.0
+        plain = ref.assign_sums(xt, ct, torch.zeros((m, t), device="cuda"), w)
+        got = engine.assign_sums(xt, ct, torch.zeros_like(plain), w, impl="kernel")
+        counts = engine.assign_sums(
+            xt, ct, torch.zeros((m, t), dtype=torch.int32, device="cuda"), impl="kernel")
+        torch.cuda.synchronize()
+        check(torch.equal(got, plain) and not bool(got[1].any())
+              and bool((counts.sum(1) == per).all()),
+              f"assign sums batch m={m} per={per} t={t} d={d}: not the plain sums")
+    print(f"assign edge cases (n, k, d, plan tc/sub/chunk): {seen} bitwise through "
+          "the 2-D, streamed, batched and sums entries; equidistant centers across "
+          "lanes and tiles go to the first; counts and integer weight sums bitwise "
+          "the plain assign + index_add_; a machine of zero weights sums to 0",
+          flush=True)
 
 
 def dist2_tol(x, c):
@@ -767,7 +928,7 @@ def phase_streamed(torch, engine, P, counters):
                                   gonzalez, mrg, select_coreset)
     from repro_torch.data.source import HostSource, MemmapSource, synthetic_source
     paths = {"mrg": ("gon_step", "fused_filter"),
-             "coreset": ("gon_step", "fused_filter", "fused_assign", "argmin_rows")}
+             "coreset": ("gon_step", "fused_filter", "assign_sums", "argmin_rows")}
     totals = {name: 0 for name in counters}
     kdd = HostSource(kdd_host(P))                        # 608 MB of host points
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
@@ -942,8 +1103,14 @@ def phase_stream_profile(torch, P):
 W_FILTER_SHAPES = [(n, k, d, rank, gen) for n, d, gen in SHARDS
                    for k in (25, 125) for rank in (1, 101, 300)]
 # Phase 2h: the weighted reducer's assign, m=50 machines of per=20,000 rows
-# against their own t=125 centers (kz_center in memory, unif n=1e6).
-BATCHED_SHAPES = [(50, 20_000, 125, 2, "unif"), (50, 20_000, 125, 38, "kddlike")]
+# against their own t=125 centers (kz_center in memory, unif n=1e6; kddlike
+# at d = 38).
+BATCHED_SHAPES = [(50, 20_000, 125, 2, "unif"), (50, 20_000, 125, 38, "kddlike"),
+                  (1, 573_580, 125, 38, "kddlike")]
+# The last: phase 9's round 1, one kddlike super-shard of the streamed
+# weighted kz_center against its t = k + z = 125 centers, where the sums
+# entry adds the cluster weights (the JSON line's assign_sums row).
+KZ_ROUND1 = BATCHED_SHAPES[2]
 # Phase 2i: the sketch's bootstrap at k=100, and a large block.
 PAIRWISE_SHAPES = [(101, 101, 38), (65_536, 1_024, 38)]
 PAIRWISE_TOL = {"float32": 1e-4, "float16": 3e-2}      # tests/test_kernels.py
@@ -1114,6 +1281,55 @@ def phase_batched_assign(torch, engine, P, rng, results):
             results.append(dict(kernel="assign_batched", shape=(m, per, t, d, gen),
                                 tier=tier, err=err, ms=ms, plain_ms=plain,
                                 bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+            batched_sums(torch, engine, rng, results, xt, ct, (m, per, t, d, gen), tier)
+
+
+def batched_sums(torch, engine, rng, results, xt, ct, shape, tier):
+    """The sums entry on a batched shape (the weighted reducer's cluster
+    weights): integer weights (machine 0 of several weighs nothing) and
+    counts bitwise the plain assign + index_add_; on float inputs a row may
+    move between two near-tied centers, so each sum within the weight of
+    the rows whose two nearest centers tie within tolerance. Times the
+    kernel against the plain version (no single PyTorch call computes the
+    same)."""
+    m, per, t, d, gen = shape
+    w = cuda_t(torch, int_weights(rng, m * per).reshape(m, per))
+    if m > 1:
+        w[0] = 0.0
+    outs = []
+    for ww in (w, None):
+        dtype = torch.float32 if ww is not None else torch.int32
+        for impl in ("kernel", "ref"):
+            outs.append(engine.assign_sums(
+                xt, ct, torch.zeros((m, t), dtype=dtype, device="cuda"), ww, impl=impl))
+    torch.cuda.synchronize()
+    err = (outs[0] - outs[1]).abs().max().item()
+    label = f"assign_sums m={m} per={per} t={t} d={d} {tier}"
+    check(float(outs[0].sum()) == float(w.sum()) and int(outs[2].sum()) == m * per,
+          f"{label}: the sums lose weight")
+    if tier == "exact":
+        check(torch.equal(outs[0], outs[1]) and torch.equal(outs[2], outs[3]),
+              f"{label}: not bitwise the plain assign + index_add_")
+    else:
+        tol = dist2_tol(xt.reshape(-1, d), ct.reshape(-1, d))
+        two = torch.topk(engine.ref.pairwise_dist2(xt, ct), 2, dim=-1, largest=False).values
+        ties = ((two[..., 1] - two[..., 0]).reshape(-1) <= 2 * tol).sum().item()
+        check(err <= 4 * ties and (outs[2] - outs[3]).abs().max().item() <= ties,
+              f"{label}: sums differ beyond the {ties} near-tied rows ({err})")
+    ms = plain = None
+    if tier == "float":
+        sums = torch.zeros((m, t), device="cuda")
+        ms = device_ms(torch, lambda: engine.assign_sums(xt, ct, sums, w, impl="kernel"))
+        plain = device_ms(torch, lambda: engine.assign_sums(xt, ct, sums, w, impl="ref"))
+    rows_n = m * per
+    b_ms, b_by = bound(4 * (rows_n * d + m * t * d + rows_n + m * t),
+                       rows_n * t * (2 * d + 5) + 2 * d * (rows_n + m * t))
+    print(f"{label}: ok (integer weights, machine 0 weightless, and counts; "
+          f"{'bitwise' if tier == 'exact' else 'near ties only'}) max_abs_err={err:.3g} "
+          f"kernel_ms={fmt(ms)} plain_ms={fmt(plain)} (assign + index_add_) "
+          f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
+    results.append(dict(kernel="assign_sums", shape=shape, tier=tier, err=err, ms=ms,
+                        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None))
 
 
 def phase_pairwise(torch, engine, rng, results):
@@ -1190,19 +1406,20 @@ def phase_weighted(torch, engine, P, rng, counters):
     runs = [
         ("kz_center unif n=1e6 d=2 in memory SimExecutor(m=50)", "kz",
          torch.from_numpy(unif).cuda(), 25, None,
-         ("gon_step", "assign_batched", "assign")),
+         ("gon_step", "assign_sums", "assign")),
         ("kz_center kddlike n=4e6 d=38 weighted host, 100 planted outliers", "kz",
-         kdd_w, 25, 256 * MiB, ("gon_step", "assign_batched", "fused_filter_w")),
+         kdd_w, 25, 256 * MiB,
+         ("gon_step", "assign_sums", "fused_filter_w")),
         ("kz_center unif n=1e7 d=2 synthetic", "kz",
          synthetic_source("unif", 10_000_000, d=2, seed=0), 25, 64 * MiB,
-         ("gon_step", "assign_batched", "fused_filter_w")),
+         ("gon_step", "assign_sums", "fused_filter_w")),
         ("kz_center exact-tier n=5e5 d=38 weighted host", "kz", exact_w, 25,
-         64 * MiB, ("gon_step", "assign_batched", "fused_filter_w")),
+         64 * MiB, ("gon_step", "assign_sums", "fused_filter_w")),
         ("weighted mrg kddlike n=4e6 d=38 weighted host", "mrg_w", kdd_w, 25,
-         256 * MiB, ("gon_step", "assign_batched", "fused_filter_w")),
+         256 * MiB, ("gon_step", "assign_sums", "fused_filter_w")),
         ("weighted select_coreset kddlike n=4e6 d=38 weighted host", "coreset",
          kdd_w, 100, 256 * MiB,
-         ("gon_step", "fused_filter", "fused_assign", "argmin_rows")),
+         ("gon_step", "fused_filter", "assign_sums", "argmin_rows")),
     ]
     obj = Objective(weighted=True)
     for label, kind, src, k, budget, path in runs:
@@ -1302,7 +1519,46 @@ def phase_weighted(torch, engine, P, rng, counters):
           "unit-weight weighted mrg differs from the plain mrg")
     print("unit-weight weighted mrg kddlike n=4e6 (256 MiB) == plain mrg bitwise "
           "(centers, radius2, rounds; weights sum to n)", flush=True)
+    for name, c in coreset_in_memory(torch, engine, P, counters).items():
+        totals[name] += c
     return totals
+
+
+def coreset_in_memory(torch, engine, P, counters):
+    """select_coreset in memory (SimExecutor(m=50), kddlike n=400,000,
+    k=100): its cluster counts come from the assign's sums entry and its
+    representatives from the per-center argmin over all rows (one launch),
+    against impl="ref" on the card, with no synchronising call. Returns the
+    run's launches."""
+    from repro_torch.core import SimExecutor, select_coreset
+    from repro_torch.data.source import HostSource
+    n, k = 400_000, 100
+    x = P.kddlike(n, seed=0)
+    xt = cuda_t(torch, x)
+    ex = SimExecutor(50)
+
+    def fn(impl="auto"):
+        return select_coreset(xt, k, executor=ex, impl=impl)
+    fn()                                                  # warm-up
+    res, launches, syncs, _, _ = counted_run(torch, fn, counters)
+    walls = wall_ms(torch, fn)
+    ref = fn("ref")
+    torch.cuda.synchronize()
+    label = f"select_coreset kddlike n={n} d=38 k={k} in memory SimExecutor(m=50)"
+    report_syncs(syncs)
+    check(not syncs, f"{label}: {len(syncs)} synchronising calls")
+    for name in ("gon_step", "assign", "assign_sums", "argmin_rows"):
+        check(launches[name] > 0, f"{label}: kernel {name} never launched")
+    check(launches["argmin_rows"] == 1, f"{label}: {launches['argmin_rows']} argmin "
+          "launches for the representatives (one expected)")
+    check(int(res.weights.sum()) == n, f"{label}: counts sum to {int(res.weights.sum())}")
+    moved, ties, idiff = check_coreset(torch, engine, label, HostSource(x), 100_000,
+                                       res, ref)
+    print(f"{label}: ok indices_equal_to_ref={bool(torch.equal(res.indices, ref.indices))} "
+          f"representatives_differing={idiff} weight_rows_moved_vs_ref={moved} "
+          f"near_tie_rows={ties} wall_ms={[round(w, 3) for w in walls]} "
+          f"launches={launches} sync_warnings={len(syncs)}", flush=True)
+    return launches
 
 
 
@@ -1430,6 +1686,14 @@ def phase_kz_profile(torch, P, rng):
           flush=True)
     for name, (ms, count) in sorted(by_name.items(), key=lambda r: -r[1][0])[:10]:
         print(f"  {ms:9.4f} ms  {count:6d}x  {name[:90]}", flush=True)
+    # the cluster weights are summed inside the assign: no scatter kernel
+    scatter = [n for n in by_name
+               if any(s in n.lower() for s in ("indexfunc", "index_add", "scatter"))]
+    check(not scatter, f"profile: index_add_ / scatter kernels in kz_center: {scatter}")
+    assign = [(ms, count, n) for n, (ms, count) in by_name.items() if "assign_" in n]
+    print("profile: no index_add_ or scatter kernel; the assign "
+          + "; ".join(f"{n[:40]} {ms:.4f} ms over {count} launches"
+                      for ms, count, n in assign), flush=True)
 
 
 def phase_sketch_profile(torch, P):
@@ -1454,15 +1718,32 @@ def phase_sketch_profile(torch, P):
     for name, (ms, count) in sorted(by_name.items(), key=lambda r: -r[1][0])[:8]:
         print(f"  {ms:9.4f} ms  {count:6d}x  {name[:90]}", flush=True)
 
+def digest(*tensors) -> str:
+    """SHA-1 of the tensors' bytes, in order: equal digests, bitwise equal
+    results."""
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def times_of(src: str) -> int:
-    """``--times`` in one process: the GON step and the per-center argmin of
-    the ``repro_torch`` under ``src``, one JSON line per shape and call form.
-    GON ``call`` is the wrapper as its in-memory loop calls it (with a
-    workspace and the next center into a slot where the wrapper takes
-    them), ``iteration`` adds what else that loop ran on the card each step
-    (the next center's gather ``x[rows, far]`` where the kernel did not
-    write it); argmin ``fresh_carry`` is one launch on a fresh carry,
-    ``engine`` the engine's call (the carry's fill, the launch, unpacking)."""
+    """``--times`` in one process: the kernels of the ``repro_torch`` under
+    ``src``, one JSON line per shape and call form, with a digest of the
+    form's outputs where it has them. GON ``call`` is the wrapper as its
+    in-memory loop calls it (with a workspace and the next center into a
+    slot where the wrapper takes them), ``iteration`` adds what else that
+    loop ran on the card each step (the next center's gather ``x[rows,
+    far]`` where the kernel did not write it); argmin ``fresh_carry`` is one
+    launch on a fresh carry, ``engine`` the engine's call (the carry's fill,
+    the launch, unpacking). The assign's ``engine`` form is
+    ``engine.assign_nearest`` (``ASSIGN_SHAPES``), ``engine.fused_assign``
+    (``STREAM_ASSIGN_SHAPES``) or ``engine.assign_nearest_batched``
+    (``BATCHED_SHAPES``, phase 9's round 1 the last); ``sums`` adds integer
+    row weights into per-cluster sums, by the sums entry where the tree has
+    it, else by the kernel and ``index_add_`` as the weighted reducer and
+    select_coreset did. ``representatives`` is in-memory select_coreset's
+    per-center nearest row (kddlike n=400,000, k=100)."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1503,6 +1784,42 @@ def times_of(src: str) -> int:
                          ("engine", lambda: engine.fused_argmin(xt, ct, impl="kernel"))):
             out.append(dict(kernel="argmin_rows", shape=[n, m, d, gen], form=form,
                             ms=device_ms(torch, fn, reps=20, warmup=3)))
+    folded = hasattr(engine, "assign_sums")
+    shapes = ([("assign", engine.assign_nearest, (1,) + s) for s in ASSIGN_SHAPES]
+              + [("fused_assign", engine.fused_assign, (1,) + s)
+                 for s in STREAM_ASSIGN_SHAPES]
+              + [("assign_batched", engine.assign_nearest_batched, s)
+                 for s in BATCHED_SHAPES])
+    for name, op, (m, n, k, d, gen) in shapes:
+        x = generated(P, gen, m * n, d, 4)
+        xt = torch.from_numpy(x.reshape(m, n, d) if name == "assign_batched" else x).cuda()
+        pick = torch.from_numpy(rng.choice(n, k, replace=False)).cuda()
+        ct = (xt[:, pick] if name == "assign_batched" else xt[pick]).contiguous()
+        wt = torch.from_numpy(int_weights(rng, m * n).reshape(xt.shape[:-1])).cuda()
+
+        def sums(op=op, xt=xt, ct=ct, wt=wt, m=m, k=k, batched=name == "assign_batched"):
+            shape = (m, k) if batched else (k,)
+            acc = torch.zeros(shape, dtype=torch.float32, device="cuda")
+            if folded:
+                return engine.assign_sums(xt, ct, acc, wt, impl="kernel")
+            idx = op(xt, ct, impl="kernel")[0]
+            if batched and m > 1:
+                idx = idx + torch.arange(0, m * k, k, dtype=torch.int32,
+                                         device=idx.device)[:, None]
+            acc.view(-1).index_add_(0, idx.reshape(-1), wt.reshape(-1))
+            return acc
+        for form, fn in (("engine", lambda: op(xt, ct, impl="kernel")), ("sums", sums)):
+            res = fn()
+            out.append(dict(kernel=name, shape=[m, n, k, d, gen], form=form,
+                            ms=device_ms(torch, fn),
+                            digest=digest(*(res if form == "engine" else (res,)))))
+    x = P.kddlike(400_000, seed=0)
+    xt = torch.from_numpy(x).cuda()
+    ct = xt[torch.from_numpy(rng.choice(400_000, 100, replace=False)).cuda()]
+    fn = lambda: engine.argmin_dist2_over_rows(xt, ct, impl="kernel")
+    out.append(dict(kernel="select_coreset", shape=[400_000, 100, 38, "kddlike"],
+                    form="representatives", ms=device_ms(torch, fn, reps=10),
+                    digest=digest(fn())))
     for row in out:
         print(json.dumps(dict(row, src=src)), flush=True)
     return 0
@@ -1510,7 +1827,8 @@ def times_of(src: str) -> int:
 
 def compare_times(srcs) -> int:
     """``--times``: ``times_of`` for each tree in turn, then one line per
-    shape and form with the trees' times in the order given."""
+    shape and form with the trees' times in the order given, and their
+    outputs' digests where the form has them (``same``: all equal)."""
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip(), flush=True)
@@ -1518,7 +1836,7 @@ def compare_times(srcs) -> int:
     for src in srcs:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
                                "--times-of", src], capture_output=True,
-                              text=True, timeout=600)
+                              text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)
             return proc.returncode
@@ -1526,8 +1844,13 @@ def compare_times(srcs) -> int:
                      if line.startswith("{")])
     for rows in zip(*runs):
         head = rows[0]
+        note = ""
+        if "digest" in head:
+            digests = [r["digest"] for r in rows]
+            note = (f" same={len(set(digests)) == 1} digests="
+                    + ",".join(digests))
         print(f"{head['kernel']} {tuple(head['shape'])} {head['form']}: "
-              + " ".join(f"{r['src']}={r['ms']:.5f}" for r in rows), flush=True)
+              + " ".join(f"{r['src']}={r['ms']:.5f}" for r in rows) + note, flush=True)
     return 0
 
 
@@ -1541,7 +1864,7 @@ def main() -> int:
     from repro_torch.data import pointsets as P
     from repro_torch.kernels import _build, engine
     from repro_torch.kernels.assign import (assign_nearest_batched_cuda,
-                                            assign_nearest_cuda)
+                                            assign_nearest_cuda, assign_sums_cuda)
     from repro_torch.kernels.fused_argfar import fused_min_argmax_cuda
     from repro_torch.kernels.fused_stream import (fused_argmin_cuda,
                                                   fused_assign_cuda,
@@ -1577,11 +1900,13 @@ def main() -> int:
     phase_assign(torch, P, rng, results, "assign", engine.assign_nearest,
                  ASSIGN_SHAPES, "== phase 2b: assign (assign.cu) against its "
                  "plain version", seed=4)
+    assign_routing(torch, engine, P, rng)
     phase_filter(torch, engine, P, rng, results)
     phase_assign(torch, P, rng, results, "fused_assign", engine.fused_assign,
                  STREAM_ASSIGN_SHAPES, "== phase 2d: streamed assign "
                  "(fused_assign_cuda, assign.cu) against its plain version",
                  seed=5)
+    assign_edge_cases(torch, engine, rng)
     phase_argmin(torch, engine, P, rng, results)
     phase_weighted_filter(torch, engine, P, rng, results)
     phase_batched_assign(torch, engine, P, rng, results)
@@ -1593,7 +1918,7 @@ def main() -> int:
     for gen, n, d, k in PROFILE_CONFIGS:
         phase_profile(torch, mrg, P, gen, n, d, k, fused_min_argmax_cuda)
     counters.update(fused_filter=fused_filter_cuda, fused_assign=fused_assign_cuda,
-                    argmin_rows=fused_argmin_cuda)
+                    assign_sums=assign_sums_cuda, argmin_rows=fused_argmin_cuda)
     stream_totals = phase_streamed(torch, engine, P, counters)
     phase_stream_profile(torch, P)
     counters.update(fused_filter_w=fused_filter_w_cuda,
@@ -1609,11 +1934,14 @@ def main() -> int:
     # the filter at the unif super-shard (k=25, rank 1), assign and argmin at
     # the kddlike super-shard with the coreset's k=100; the weighted filter
     # at the kddlike super-shard with kz_center's k=25 and rank z + 1 = 101,
-    # the batched assign at m=50, per=20000, t=125, d=2, pairwise at the
-    # sketch's (101, 101, 38) bootstrap in f32. Launches: in memory, phase
-    # 3's mrg runs; streamed, phase 5's runs; the weighted filter, batched
-    # assign and pairwise, phases 7 and 8. max_abs_err over every check of
-    # the kernel.
+    # the batched assign at m=50, per=20000, t=125, d=2, the sums entry at
+    # phase 9's round 1 (1 x 573,580 rows, t=125, d=38), pairwise at the
+    # sketch's (101, 101, 38) bootstrap in f32. Launches: every launch of the
+    # kernel's wrapper in the counted runs of phases 3, 5, 7 and 8, each
+    # counted once, by the wrapper that made it (the streamed and batched
+    # assign's cluster sums take the sums entry: assign_sums, not
+    # fused_assign or assign_batched). max_abs_err over every check of the
+    # kernel.
     meta = {"gon_step": ("src/repro_torch/kernels/csrc/gon_step.cu",
                          "src/repro/kernels/fused_argfar.py:48", GON_SHAPES[0]),
             "assign": ("src/repro_torch/kernels/csrc/assign.cu",
@@ -1633,6 +1961,8 @@ def main() -> int:
             "assign_batched": ("src/repro_torch/kernels/csrc/assign.cu",
                                "src/repro/kernels/assign.py:52",
                                BATCHED_SHAPES[0]),
+            "assign_sums": ("src/repro_torch/kernels/csrc/assign.cu",
+                            "src/repro/kernels/assign.py:52", KZ_ROUND1),
             "pairwise": ("src/repro_torch/kernels/csrc/pairwise.cu",
                          "src/repro/kernels/pairwise.py:41",
                          PAIRWISE_SHAPES[0] + ("float32",))}
@@ -1640,12 +1970,8 @@ def main() -> int:
     for name, (source, replaces, shape) in meta.items():
         mine = [r for r in results if r["kernel"] == name]
         main = next(r for r in mine if r["shape"] == shape and r["tier"] == "float")
-        if name in totals:
-            launches = totals[name]
-        elif name in ("fused_filter_w", "assign_batched", "pairwise"):
-            launches = weighted_totals[name] + sketch_totals[name]
-        else:
-            launches = stream_totals[name]
+        launches = sum(t.get(name, 0) for t in (totals, stream_totals,
+                                                weighted_totals, sketch_totals))
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": max(r["err"] for r in mine),

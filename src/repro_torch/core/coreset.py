@@ -28,19 +28,6 @@ class Coreset(NamedTuple):
     radius2: torch.Tensor    # ()    squared covering radius
 
 
-def _weight_sums(src, centers, impl, block_rows, memory_budget, dev):
-    """Per-cluster sums of a weighted source's row weights, streamed. The
-    weights of a block are a view of its ring slot, which this frame's end
-    releases before the next pass allocates its own ring."""
-    weights = torch.zeros((centers.shape[0],), dtype=torch.float32,
-                          device=dev)
-    for idx, _, w in ops.assign_nearest_source(
-            src, centers, impl=impl, block_rows=block_rows,
-            memory_budget=memory_budget, with_weights=True, device=dev):
-        weights.index_add_(0, idx, w)
-    return weights
-
-
 def select_coreset(embeddings, k: int, *, mesh=None,
                    executor: Executor | None = None, impl: str = "auto",
                    chunk: int | None = None, block_rows: int | None = None,
@@ -100,27 +87,21 @@ def select_coreset(embeddings, k: int, *, mesh=None,
         res = gonzalez(src, k, impl=impl, block_rows=block_rows,
                        memory_budget=memory_budget, device=dev)
     centers, r2 = res.centers, res.radius2
-    # int32 counts are exact (n < 2^31); one int32 per row is the block's
-    # share of the residency model's per-row carry
-    counts = torch.zeros((k,), dtype=torch.int32, device=dev)
-    if streamed and has_weights(src):
-        weights = _weight_sums(src, centers, impl, block_rows, memory_budget,
-                               dev)
-        cidx = ops.argmin_dist2_over_source(
-            src, centers, impl=impl, block_rows=block_rows,
-            memory_budget=memory_budget, device=dev)
-        return Coreset(cidx, centers, weights, r2)
+    # int32 counts are exact (n < 2^31); a weighted source's f32 weight sums
+    # are exact below 2^24 for integer weights. One pass of the assign with
+    # the sums folded in, every block adding into the same (k,) tensor.
     if streamed:
-        for idx, _ in ops.assign_nearest_source(
-                src, centers, impl=impl, block_rows=block_rows,
-                memory_budget=memory_budget, device=dev):
-            counts.index_add_(0, idx, torch.ones_like(idx))
+        weighted = has_weights(src)
+        sums = ops.assign_sums_source(
+            src, centers, impl=impl, block_rows=block_rows,
+            memory_budget=memory_budget, weighted=weighted, device=dev)
         cidx = ops.argmin_dist2_over_source(
             src, centers, impl=impl, block_rows=block_rows,
             memory_budget=memory_budget, device=dev)
     else:
         emb = as_points(src, dev)
-        idx, _ = ops.assign_nearest(emb, centers, impl=impl)
-        counts.index_add_(0, idx, torch.ones_like(idx))
+        sums = ops.assign_sums(emb, centers,
+                               torch.zeros((k,), dtype=torch.int32,
+                                           device=dev), impl=impl)
         cidx = ops.argmin_dist2_over_rows(emb, centers, impl=impl)
-    return Coreset(cidx, centers, counts.to(torch.float32), r2)
+    return Coreset(cidx, centers, sums.to(torch.float32), r2)

@@ -106,13 +106,13 @@ def weighted_gon_block_fn(k: int, impl: str = "auto", *,
     center (one machine's share of a weighted coreset, Ceccarello et al.).
 
     Selection is ``gon_block_fn``'s GON (k-center's objective does not
-    depend on the weights); the assign is one launch for all machines
-    (``ops.assign_nearest_batched``). ``mask_zero`` also drops ``w <= 0``
-    rows from selection (they are absent from the instance): round 1 wants
-    that; the combine levels pass ``mask_zero=False`` so that their
-    selection mask is exactly the plain ``combine``'s. The sums are
-    ``index_add_``: on the card its atomics add in no fixed order, so a
-    sum is bitwise only where every partial sum is exact — integer
+    depend on the weights); the assign and the sums are one launch for all
+    machines (``ops.assign_sums``). ``mask_zero``
+    also drops ``w <= 0`` rows from selection (they are absent from the
+    instance): round 1 wants that; the combine levels pass
+    ``mask_zero=False`` so that their selection mask is exactly the plain
+    ``combine``'s. On the card the sums' atomics add in no fixed order, so
+    a sum is bitwise only where every partial sum is exact — integer
     weights with sums below 2^24, as cluster counts are; float weights
     agree to f32 rounding of the sum."""
     def fn(points: torch.Tensor, mask, w: torch.Tensor):
@@ -121,16 +121,10 @@ def weighted_gon_block_fn(k: int, impl: str = "auto", *,
         else:
             sel = mask
         centers = _gonzalez_device(points, k, mask=sel, impl=impl).centers
-        idx, _ = ops.assign_nearest_batched(points, centers, impl=impl)
         wsel = w if sel is None else torch.where(sel, w, 0.0)
-        m = points.shape[0]
-        if m > 1:     # machine b's clusters are slots [b·k, (b+1)·k)
-            idx = idx + torch.arange(0, m * k, k, dtype=torch.int32,
-                                     device=idx.device)[:, None]
-        # int32 indices: no int64 copy of a super-shard's assignment
-        cw = torch.zeros((m * k,), dtype=torch.float32, device=points.device)
-        cw.index_add_(0, idx.reshape(-1), wsel.reshape(-1))
-        return centers, cw.view(m, k)
+        cw = torch.zeros((points.shape[0], k), dtype=torch.float32,
+                         device=points.device)
+        return centers, ops.assign_sums(points, centers, cw, wsel, impl=impl)
     return fn
 
 
@@ -271,9 +265,9 @@ class Executor:
             return centers, w, valid, extra
         final = _gonzalez_device(centers[None], k, mask=valid[None],
                                  impl=impl).centers[0]
-        idx, _ = ops.assign_nearest(centers, final, impl=impl)
         w_out = torch.zeros((k,), dtype=torch.float32, device=w.device)
-        w_out.index_add_(0, idx, torch.where(valid, w, 0.0))
+        ops.assign_sums(centers, final, w_out, torch.where(valid, w, 0.0),
+                        impl=impl)
         return (final, w_out,
                 torch.ones((k,), dtype=torch.bool, device=w.device), extra)
 

@@ -14,7 +14,8 @@ The kernel route needs a CUDA tensor on a device of compute capability 9.x
 falls back to the plain version.
 
 The source folds (``fold_min_d2``, ``fold_top_k_min_d2``,
-``assign_nearest_source``, ``argmin_dist2_over_source``) stream a point
+``assign_nearest_source``, ``assign_sums_source``,
+``argmin_dist2_over_source``) stream a point
 source in super-shards of ``block_rows`` rows through its upload ring, so
 at most ``1 + prefetch`` blocks are device-resident (``resolve_block_rows``'
 residency model), and fold each block into O(m)- or O(rank)-sized state on
@@ -30,7 +31,8 @@ import torch
 from repro_torch.device import as_points, resolve_device, upload
 
 from . import ref
-from .assign import assign_nearest_batched_cuda, assign_nearest_cuda
+from .assign import (assign_nearest_batched_cuda, assign_nearest_cuda,
+                     assign_sums_cuda)
 from .fused_argfar import GonWorkspace, fused_min_argmax_cuda
 from .fused_stream import (argmin_carry, fused_argmin_cuda, fused_assign_cuda,
                            fused_filter_cuda, fused_filter_w_cuda,
@@ -124,10 +126,28 @@ def assign_nearest_batched(x, c, *, impl: str = "auto"):
     return ref.assign_nearest(x, c)
 
 
+def assign_sums(x, c, sums, w=None, *, impl: str = "auto"):
+    """Add each row's weight ``w`` (f32 sums), or 1 (int32 counts,
+    ``w=None``), into the slot of its nearest center, in place: ``x (n,
+    d)`` against ``c (k, d)`` into ``sums (k,)``, or machine blocks ``x (m,
+    per, d)`` against their own ``c (m, k, d)`` into ``sums (m, k)``.
+    Returns ``sums``. One launch of the assign's sums entry on the card;
+    the plain route is the assign, then ``index_add_``
+    (``ref.assign_sums``)."""
+    if _resolve(impl, x):
+        return assign_sums_cuda(x, c, sums, w)
+    return ref.assign_sums(x, c, sums, w)
+
+
 def argmin_dist2_over_rows(x, c, *, impl: str = "auto"):
     """For each center row of ``c (m, d)``, the index of the nearest row of
-    ``x (n, d)``: ``assign_nearest(c, x)[0]``, first row on ties."""
-    return assign_nearest(c, x, impl=impl)[0]
+    ``x (n, d)``, first row on ties. The kernel route is the per-center
+    argmin on one block from a fresh carry (many rows against few
+    centers); the plain route ``assign_nearest(c, x)[0]``. Each pair rounds
+    as in the assign (``csrc/dist2.cuh``), so the two kernels agree."""
+    if _resolve(impl, x):
+        return fused_argmin(x, c, impl="kernel")[1]
+    return ref.assign_nearest(c, x)[0]
 
 
 def fused_filter(x, c, ds=None, hm=None, *, rank: int, w=None,
@@ -354,23 +374,40 @@ def fold_top_k_min_d2(source, c, rank: int, *, impl: str = "auto",
 def assign_nearest_source(source, c, *, impl: str = "auto",
                           block_rows: int | None = None,
                           memory_budget: int | None = None,
-                          prefetch: int | None = None,
-                          with_weights: bool = False, device=None):
+                          prefetch: int | None = None, device=None):
     """Streaming nearest-center assignment over a source: yields ``(idx
     (rows,) int32, d2 (rows,))`` per block, in row order; the yields
     concatenated equal the in-memory ``assign_nearest``. The yields are
-    fresh tensors, not views of the upload ring. ``with_weights=True``
-    appends each block's row weights on the device, ``(idx, d2, w)``
-    (unit weights for a source without them); ``w`` is valid until the
-    next block is asked for. ``device=None`` means ``"cuda"``."""
+    fresh tensors, not views of the upload ring. ``device=None`` means
+    ``"cuda"``."""
     dev, rows, c = _fold_setup(source, c, block_rows, memory_budget,
                                prefetch, device)
-    if with_weights:
-        for blk, w in _weighted_source_blocks(source, rows, prefetch, dev):
-            yield (*fused_assign(blk, c, impl=impl), w)
-        return
     for blk in _source_blocks(source, rows, prefetch, dev):
         yield fused_assign(blk, c, impl=impl)
+
+
+def assign_sums_source(source, c, *, impl: str = "auto",
+                       block_rows: int | None = None,
+                       memory_budget: int | None = None,
+                       prefetch: int | None = None, weighted: bool = False,
+                       device=None) -> torch.Tensor:
+    """Per-cluster sums over a source, streamed: for each center of ``c (k,
+    d)``, the count of source rows nearest to it (int32), or with
+    ``weighted=True`` the sum of their row weights (f32; unit weights for a
+    source without them). Every block adds into one (k,) tensor on the
+    device (``assign_sums``). ``device=None`` means
+    ``"cuda"``."""
+    dev, rows, c = _fold_setup(source, c, block_rows, memory_budget,
+                               prefetch, device)
+    if weighted:
+        sums = torch.zeros((c.shape[0],), dtype=torch.float32, device=dev)
+        for blk, w in _weighted_source_blocks(source, rows, prefetch, dev):
+            assign_sums(blk, c, sums, w, impl=impl)
+        return sums
+    sums = torch.zeros((c.shape[0],), dtype=torch.int32, device=dev)
+    for blk in _source_blocks(source, rows, prefetch, dev):
+        assign_sums(blk, c, sums, impl=impl)
+    return sums
 
 
 def argmin_dist2_over_source(source, c, *, impl: str = "auto",

@@ -19,7 +19,10 @@ per-block passes of the source folds (``engine.fold_min_d2``,
   * ``fused_assign_cuda`` for ``fused_assign_blocks``: per row the nearest
     center, exactly kernel #2's function, so it launches
     ``csrc/assign.cu``'s kernel (the TPU needed a second kernel only
-    because its assign tiles the centers over a sequential grid axis).
+    because its assign tiles the centers over a sequential grid axis). A
+    source's per-cluster counts or weight sums take the assign's sums entry
+    instead (``engine.assign_sums_source``), one (k,) tensor for all
+    blocks.
   * ``fused_argmin_cuda`` (``csrc/argmin_rows.cu``) for
     ``fused_argmin_blocks``: per center the nearest row, folded into a
     packed (d2, row) carry across blocks; register-tiled (8 rows × up to 8
@@ -39,8 +42,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .assign import _TILE_FLOATS
-from .assign import _lib as _assign_lib
+from .assign import _TILE_FLOATS, assign_outputs
 from .ref import BIG, FILTER_TILE_ROWS, NEG
 from .ref import assign_nearest as fused_assign_ref  # noqa: F401
 from .ref import fused_argmin as fused_argmin_ref  # noqa: F401
@@ -208,20 +210,11 @@ def fused_assign_cuda(x: torch.Tensor, c: torch.Tensor):
     """Launch the nearest-center kernel of ``csrc/assign.cu`` for a
     streamed block: ``(idx (n,) int32, d2 (n,) f32)``, same contract as
     ``fused_assign_ref``. Counted apart from ``assign_nearest_cuda``."""
-    dev = _build.require_hopper(x, c)
-    n, d, k = _check_points(x, c)
-    if not (1 <= n < 2**31 - 2**8 and 1 <= k < 2**31 and 1 <= d < _TILE_FLOATS):
-        raise ValueError(f"unsupported sizes n={n}, k={k}, d={d}")
-    tc = min(k, _TILE_FLOATS // (d + 1))
-    idx = torch.empty((n,), dtype=torch.int32, device=dev)
-    d2 = torch.empty((n,), dtype=torch.float32, device=dev)
-    lib = _assign_lib()
-    code = lib.repro_assign_nearest(
-        x.data_ptr(), c.data_ptr(), idx.data_ptr(), d2.data_ptr(), n, k, d,
-        tc, dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, code, "fused_assign")
+    if x.dim() != 2:
+        raise ValueError(f"x must be (n, d), got {tuple(x.shape)}")
+    out = assign_outputs(x, c, batched=False, what="fused_assign")
     fused_assign_cuda.launches += 1
-    return idx, d2
+    return out
 
 
 fused_assign_cuda.launches = 0

@@ -10,6 +10,7 @@ fused_min_argmax = engine.fused_min_argmax
 gon_workspace = engine.gon_workspace
 assign_nearest = engine.assign_nearest
 assign_nearest_batched = engine.assign_nearest_batched
+assign_sums = engine.assign_sums
 argmin_dist2_over_rows = engine.argmin_dist2_over_rows
 fused_filter = engine.fused_filter
 fused_assign = engine.fused_assign
@@ -23,6 +24,7 @@ host_blocks_of = engine.host_blocks_of
 fold_min_d2 = engine.fold_min_d2
 fold_top_k_min_d2 = engine.fold_top_k_min_d2
 assign_nearest_source = engine.assign_nearest_source
+assign_sums_source = engine.assign_sums_source
 argmin_dist2_over_source = engine.argmin_dist2_over_source
 top_k_init = engine.top_k_init
 merge_top_k = engine.merge_top_k

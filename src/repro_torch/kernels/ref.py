@@ -88,6 +88,27 @@ def assign_nearest(x: torch.Tensor, c: torch.Tensor):
     return idx.to(torch.int32), d2.gather(-1, idx.unsqueeze(-1)).squeeze(-1)
 
 
+def assign_sums(x: torch.Tensor, c: torch.Tensor, sums: torch.Tensor,
+                w: torch.Tensor | None = None) -> torch.Tensor:
+    """Add each row's weight into the slot of its nearest center, in place:
+    ``sums (k,)`` f32 with row weights ``w (n,)``, or int32 counts (1 a
+    row) with ``w=None``; machine blocks ``x (m, per, d)`` against their own
+    ``c (m, k, d)`` add into ``sums (m, k)``. Returns ``sums``. The plain
+    assign, then ``index_add_`` (the JAX package's ``.at[idx].add``), which
+    adds in order on the CPU and by atomics on the card: bitwise wherever
+    every partial sum is exact, as integer weights below 2^24 and counts
+    are."""
+    idx = assign_nearest(x, c)[0]
+    if idx.dim() == 2:       # machine b's slots are [b·k, (b+1)·k)
+        m, k = sums.shape
+        idx = idx + torch.arange(0, m * k, k, dtype=torch.int32,
+                                 device=idx.device)[:, None]
+    vals = torch.ones_like(idx) if w is None else w
+    # int32 indices: no int64 copy of a super-shard's assignment
+    sums.view(-1).index_add_(0, idx.reshape(-1), vals.reshape(-1))
+    return sums
+
+
 def fused_filter(x: torch.Tensor, c: torch.Tensor, ds=None, hm=None, *,
                  rank: int, w=None):
     """The streamed filter step on one block ``x (n, d)`` against the

@@ -19,7 +19,8 @@ from repro.kernels import ref as jref
 from repro_torch import interop
 from repro_torch.core.gonzalez import _gonzalez_device
 from repro_torch.kernels import _build, engine
-from repro_torch.kernels.assign import assign_nearest_cuda
+from repro_torch.kernels.assign import (WIDE_MAX_D, WIDE_MAX_KD, assign_nearest_cuda,
+                                        assign_plan)
 from repro_torch.kernels._build import SMEM_LIMIT
 from repro_torch.kernels.fused_argfar import (MAX_CTAS_PER_SM, fused_min_argmax_cuda,
                                               gon_plan)
@@ -159,6 +160,42 @@ def test_launch_plans_fit_shared_memory(d):
             assert a.ctiles == -(-m // 128)
     assert argmin_plan(100, 5, 203, sms).tc == 0        # the wide kernel
     assert argmin_plan(100, 5, 1000, sms).tc == 0
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 38, 64, 65, 200, 203, 1000])
+def test_assign_plan_fits_shared_memory_and_covers(d):
+    # csrc/assign.cu's shared-memory layout, recomputed here, for 132 SMs
+    sms = 132
+    for k in (1, 25, 125, 300, 2000):
+        for sums in (False, True):
+            bins = 4 * k if sums else 0
+            for n, m in ((1, 1), (100, 1), (573_580, 1), (20_000, 50)):
+                p = assign_plan(n, k, d, sms, m, sums)
+                assert p.smem <= SMEM_LIMIT and p.grid_x >= 1
+                assert p.bins == sums
+                if p.tc == 0:                   # the wide kernel
+                    assert p.grid_x * 128 >= n
+                    assert 1 <= p.chunk <= k and p.chunk * (d + 1) <= 8192
+                    assert p.smem == 4 * p.chunk * (d + 1) + bins
+                    continue
+                tile, rows = 16 * p.tc, 128 * p.sub
+                assert 1 <= p.tc <= 8 and 1 <= p.sub <= 8
+                assert rows * d * 4 <= 16 * 1024 or p.sub == 1
+                nchunks = -(-k // (p.chunk * tile))
+                assert p.chunk * tile * nchunks >= k          # every center
+                assert p.grid_x <= max(1, 2 * sms // m)       # grid-strides rows
+                carried = 8 * rows if nchunks > 1 else 0
+                assert p.smem == 4 * (2 * d * (rows + 4) + rows + d * (p.chunk * tile + 1)
+                                      + p.chunk * tile) + carried + bins
+                if d <= 130 and k <= 128:       # the path's shapes: all resident
+                    assert nchunks == 1 and p.chunk == 1
+            # the wide kernel where it measured faster, or where not even a
+            # 16-center tile fits beside two 128-row stages
+            fits = (4 * (2 * d * 132 + 128 + d + 16 * (d + 1)) + bins
+                    + (8 * 128 if k > 16 else 0)) <= SMEM_LIMIT
+            small = d <= WIDE_MAX_D or k * d < WIDE_MAX_KD
+            assert (assign_plan(573_580, k, d, sms, 1, sums).tc == 0) == (small or not fits)
+    assert assign_plan(20_000, 2000, 38, sms).chunk < -(-2000 // 128)    # chunks
 
 
 def test_dispatch_auto_ref_kernel_on_cpu():

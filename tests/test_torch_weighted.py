@@ -33,13 +33,15 @@ from repro.core.executor import weighted_gon_block_fn as jweighted_gon_block_fn
 from repro.data import source as jsource
 from repro.kernels import engine as jengine
 from repro.kernels import fused_stream as jfs
+from repro.kernels import ops as jops
 from repro_torch.core import (HostStreamExecutor, Objective, SimExecutor, mrg,
                               select_coreset, weighted_gon_block_fn)
 from repro_torch.data.source import (ArraySource, HostSource, WeightedSource,
                                      has_weights, take_weights, weights_of)
 from repro_torch.kernels import engine, ref
-from repro_torch.kernels.assign import assign_nearest_batched_cuda
-from repro_torch.kernels.fused_stream import (fused_filter_cuda,
+from repro_torch.kernels.assign import (assign_nearest_batched_cuda,
+                                        assign_nearest_cuda, assign_sums_cuda)
+from repro_torch.kernels.fused_stream import (fused_assign_cuda, fused_filter_cuda,
                                               fused_filter_w_cuda)
 
 TOL = dict(rtol=1e-4, atol=1e-4)     # tests/test_kernels.py (f32 d2)
@@ -180,6 +182,69 @@ def test_kernel_routes_raise_on_cpu_and_plain_routes_launch_nothing():
     assert [f.launches for f in counters] == before
 
 
+@pytest.mark.parametrize("masked", [False, True])
+def test_assign_sums_plain_matches_jax_at_add(masked):
+    # the sums entry's plain version against jnp.zeros(k).at[idx].add(w),
+    # machine by machine, on integer weights (and counts): bitwise
+    rng = np.random.default_rng(11)
+    m, per, d, k = 4, 150, 3, 7
+    x = _pts(rng, (m, per, d), True)
+    c = _pts(rng, (m, k, d), True)
+    w = _weights(rng, m * per).reshape(m, per)
+    if masked:                    # the reducer's where(sel, w, 0)
+        sel = rng.random((m, per)) < 0.6
+        sel[1] = False            # a machine with no row selected
+        w = np.where(sel, w, np.float32(0))
+    got = ref.assign_sums(_t(x), _t(c), torch.zeros((m, k)), _t(w))
+    counts = engine.assign_sums(_t(x), _t(c), torch.zeros((m, k), dtype=torch.int32))
+    for b in range(m):
+        jidx = jops.assign_nearest(x[b], c[b], impl="ref")[0]
+        np.testing.assert_array_equal(
+            got[b].numpy(), np.asarray(jnp.zeros(k, jnp.float32).at[jidx].add(w[b])))
+        np.testing.assert_array_equal(
+            counts[b].numpy(), np.asarray(jnp.zeros(k, jnp.int32).at[jidx].add(1)))
+        # the 2-D form is one machine of the batch
+        one = engine.assign_sums(_t(x[b]), _t(c[b]), torch.zeros(k), _t(w[b]))
+        assert torch.equal(one, got[b])
+    if masked:
+        assert not bool(got[1].any())
+
+
+def test_assign_sums_source_matches_in_memory_sums():
+    rng = np.random.default_rng(12)
+    x, w = _pts(rng, (230, 4), True), _weights(rng, 230)
+    c = _t(x[:9])
+    src = WeightedSource(HostSource(x), w)
+    for weighted, want in (
+            (True, ref.assign_sums(_t(x), c, torch.zeros(9), _t(w))),
+            (False, ref.assign_sums(_t(x), c, torch.zeros(9, dtype=torch.int32)))):
+        got = engine.assign_sums_source(src, c, block_rows=64, weighted=weighted,
+                                        device="cpu")
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    # a source without weights sums unit weights
+    unit = engine.assign_sums_source(HostSource(x), c, block_rows=64,
+                                     weighted=True, device="cpu")
+    assert torch.equal(unit, want.to(torch.float32))
+
+
+def test_sums_kernel_routes_raise_on_cpu_and_plain_routes_launch_nothing():
+    x, c = torch.zeros((8, 2)), torch.zeros((2, 2))
+    counters = (assign_sums_cuda, assign_nearest_cuda, assign_nearest_batched_cuda,
+                fused_assign_cuda)
+    before = [f.launches for f in counters]
+    for call in (lambda: assign_sums_cuda(x, c, torch.zeros(2), torch.ones(8)),
+                 lambda: engine.assign_sums(x, c, torch.zeros(2, dtype=torch.int32),
+                                            impl="kernel"),
+                 lambda: engine.assign_sums(x[None], c[None], torch.zeros(1, 2),
+                                            torch.ones(1, 8), impl="kernel"),
+                 lambda: engine.argmin_dist2_over_rows(x, c, impl="kernel")):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call()
+    engine.assign_sums(x, c, torch.zeros(2), torch.ones(8))
+    engine.assign_sums(x, c, torch.zeros(2, dtype=torch.int32), impl="ref")
+    assert [f.launches for f in counters] == before
+
+
 # -- the batched weighted reducer and the weighted combine ----------------
 
 @pytest.mark.parametrize("tier", ["exact", "float"])
@@ -286,20 +351,26 @@ def test_duck_typed_weighted_source_folds_like_weighted_source():
 
 
 def test_weighted_assign_source_yields_weights():
+    # the streamed assign's blocks in row order, and the weighted folds'
+    # (points, weights) blocks: a source's own weights, unit weights for a
+    # source without them
     rng = np.random.default_rng(5)
     x, w = _pts(rng, (90, 2), True), _weights(rng, 90)
     c = _t(x[:4])
-    got = list(engine.assign_nearest_source(
-        WeightedSource(HostSource(x), w), c, block_rows=32,
-        with_weights=True, device="cpu"))
+    src = WeightedSource(HostSource(x), w)
+    got = list(engine.assign_nearest_source(src, c, block_rows=32, device="cpu"))
     idx, d2 = engine.assign_nearest(_t(x), c)
     assert torch.equal(torch.cat([g[0] for g in got]), idx)
     assert torch.equal(torch.cat([g[1] for g in got]), d2)
-    np.testing.assert_array_equal(torch.cat([g[2] for g in got]).numpy(), w)
+    blocks = [(b.clone(), bw.clone()) for b, bw in
+              engine._weighted_source_blocks(src, 32, None, torch.device("cpu"))]
+    assert [b.shape[0] for b, _ in blocks] == [32, 32, 26]
+    np.testing.assert_array_equal(torch.cat([b for b, _ in blocks]).numpy(), x)
+    np.testing.assert_array_equal(torch.cat([bw for _, bw in blocks]).numpy(), w)
     # an unweighted source gives unit weights
-    unit = list(engine.assign_nearest_source(HostSource(x), c, block_rows=32,
-                                             with_weights=True, device="cpu"))
-    assert all(bool((g[2] == 1).all()) for g in unit)
+    unit = list(engine._weighted_source_blocks(HostSource(x), 32, None,
+                                               torch.device("cpu")))
+    assert all(bool((bw == 1).all()) for _, bw in unit)
 
 
 # -- weighted mrg and select_coreset on both executors ---------------------
