@@ -19,7 +19,9 @@ Phases, each of which raises on failure (nothing is caught):
               CTAs, two runs on one workspace, the streamed carry over 3
               blocks), 2b assign (in-memory path; both assign kernels
               timed at shapes on each side of the plan's routing); 2c
-              filter, 2d streamed assign and the assign's edge cases (d
+              filter (ranks 1, 17 and 129; its three kernels timed at
+              shapes on each side of the plan's routing), 2d streamed
+              assign and the assign's edge cases (d
               up to 1000, k up to
               2,000, n = 1 and below a stage, equidistant centers across
               center lanes and tiles, the sums entry's counts and integer
@@ -51,7 +53,11 @@ Phases, each of which raises on failure (nothing is caught):
   2g, 2h, 2i (run with phase 2) — the weighted filter (fused_filter.cu's
               weighted entry) at ranks 1, 101 and 300 with integer weights,
               unit weights against the plain kernel, and the plain filter
-              at rank 300; the batched assign against the 2-D entry, and its
+              at rank 300; the filter's edge cases (n = 1 and below a
+              tile, ranks 1 to 300 around 32 and 256, every row masked or
+              weightless, duplicate values, extreme ds, center chunks, d
+              up to 1000, both sides of the routing), both entries; the
+              batched assign against the 2-D entry, and its
               sums entry (the weighted reducer's cluster weights) against the
               plain assign and index_add_; the pairwise kernel in f32 and f16;
   7. the weighted objective and (k,z)-center: kz_center in memory and out
@@ -60,8 +66,10 @@ Phases, each of which raises on failure (nothing is caught):
               weighted select_coreset, against impl="ref" on the card, with
               launches, synchronising calls (kz_center: exactly its one
               coreset read), wall time, host time per GON iteration and
-              peak device memory; select_coreset in memory (kddlike
-              n = 400,000, k = 100) against impl="ref";
+              peak device memory; weighted mrg and kz_center run twice
+              with non-integer weights (are the float cluster sums the
+              same?); select_coreset in memory (kddlike n = 400,000, k =
+              100) against impl="ref";
   8. the streaming sketch over the 1e7-point generator and the kddlike host
               source, both insertion tails, against impl="ref" on the card:
               coverage passes, launches, synchronising calls, host time of
@@ -77,8 +85,10 @@ without a CUDA device, and where the repository's package is missing.
     python3 chip_smoke.py --times SRC [SRC ...]
 
 times the GON step, the per-center argmin, the assign (2-D, streamed and
-batched, alone and with the cluster sums) and in-memory select_coreset's
-representative pass at their path shapes, in call forms that every version
+batched, alone and with the cluster sums), in-memory select_coreset's
+representative pass, the filter (#3 and #6 at the super-shards, the
+covering-radius fold, EIM's form and the weighted form) and the per-block
+top-k merge at their path shapes, in call forms that every version
 of the kernels takes, for the ``repro_torch`` under each ``SRC`` directory in
 turn (one process each, in the order given), and prints them side by side
 with a SHA-1 digest of each form's outputs, so that equal digests show
@@ -128,10 +138,11 @@ PROFILE_CONFIGS = [("unif", 1_000_000, 2, 25), ("kddlike", 400_000, 38, 25)]
 # memory_budget=...) resolves — 1,864,135 rows for unif n = 1e7, d = 2 at
 # 64 MiB; 573,580 rows for kddlike n = 4e6, d = 38 at 256 MiB — with the
 # path's k. Filter rank 1 is the covering-radius fold (no ds, no mask),
-# rank 17 EIM's form (phi * ln n at n = 1e7, with ds and an H mask).
+# rank 17 EIM's form (phi * ln n at n = 1e7, with ds and an H mask), rank
+# 129 the same at a larger phi.
 SHARDS = [(1_864_135, 2, "unif"), (573_580, 38, "kddlike")]
 FILTER_SHAPES = [(n, k, d, rank, gen) for n, d, gen in SHARDS
-                 for k in (25, 100) for rank in (1, 17)]
+                 for k in (25, 100) for rank in (1, 17, 129)]
 STREAM_ASSIGN_SHAPES = [(1_864_135, 25, 2, "unif"), (1_864_135, 100, 2, "unif"),
                         (573_580, 100, 38, "kddlike")]
 ARGMIN_SHAPES = STREAM_ASSIGN_SHAPES
@@ -596,6 +607,134 @@ def phase_filter(torch, engine, P, rng, results):
             results.append(dict(kernel="fused_filter", shape=(n, k, d, rank, gen),
                                 tier=tier, err=err, ms=ms, plain_ms=plain,
                                 bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    filter_routing(torch, engine, P)
+
+
+# The filter plan's routing (fused_stream.SMALL_MAX_D, TILED_MIN_KD):
+# shapes on both sides of it, unif at each (k, d), and the super-shards.
+FILTER_ROUTING_SHAPES = ([(1_000_000, 25, d) for d in (2, 4, 8, 12, 16, 24)]
+                         + [(1_000_000, 100, d) for d in (2, 4, 6, 8, 12)]
+                         + [(1_864_135, 25, 2), (573_580, 25, 38)])
+# Each route's thresholds that force it.
+FILTER_ROUTES = {"small": (8, 1 << 30), "tiled": (0, 0), "wide": (0, 1 << 30)}
+
+
+def forced_filter_route(fs, route):
+    """Set ``fused_stream``'s routing thresholds so that ``filter_plan``
+    takes ``route`` where that kernel takes the shape."""
+    fs.SMALL_MAX_D, fs.TILED_MIN_KD = FILTER_ROUTES[route]
+    fs.filter_plan.cache_clear()
+
+
+def filter_routing(torch, engine, P):
+    """Times the filter (rank 1, no ds; rank 17 with ds and a 70 % H mask)
+    on each of its kernels that takes the shape, at ``FILTER_ROUTING_SHAPES``,
+    in one call: the evidence for the plan's routing. Every kernel's outputs
+    are checked bitwise equal."""
+    from repro_torch.kernels import fused_stream as fs
+    from repro_torch.kernels._build import sm_count
+    print("filter routing (kernel_ms of each kernel at rank 1 / rank 17 with ds "
+          "and mask; * = planned):", flush=True)
+    saved = fs.SMALL_MAX_D, fs.TILED_MIN_KD
+    rng = np.random.default_rng(11)
+    try:
+        for n, k, d in FILTER_ROUTING_SHAPES:
+            xt = cuda_t(torch, P.unif(n, d=d, seed=7))
+            ct = xt[:k].contiguous()
+            ds0 = cuda_t(torch, np.floor(rng.random(n) * 5000).astype(np.float32))
+            hm = cuda_t(torch, rng.random(n) < 0.7)
+            fs.SMALL_MAX_D, fs.TILED_MIN_KD = saved
+            fs.filter_plan.cache_clear()
+            planned = fs.filter_plan(n, k, d, sm_count(0)).route
+            times, outs = {}, {}
+            for route in ("small", "tiled", "wide"):
+                if route == "small" and d > 8:
+                    continue
+                forced_filter_route(fs, route)
+                if fs.filter_plan(n, k, d, sm_count(0)).route != getattr(
+                        fs, f"ROUTE_{route.upper()}"):
+                    continue
+                ds = ds0.clone()
+                outs[route] = (engine.fused_filter(xt, ct, rank=1, impl="kernel")[1],
+                               *engine.fused_filter(xt, ct, ds, hm, rank=17,
+                                                    impl="kernel"))
+                scratch = ds0.clone()
+                times[route] = (
+                    device_ms(torch, lambda: engine.fused_filter(xt, ct, rank=1,
+                                                                 impl="kernel")),
+                    device_ms(torch, lambda: engine.fused_filter(
+                        xt, ct, scratch, hm, rank=17, impl="kernel")))
+            torch.cuda.synchronize()
+            first = next(iter(outs.values()))
+            check(all(torch.equal(a, b) for o in outs.values() for a, b in zip(o, first)),
+                  f"filter routing n={n} k={k} d={d}: the kernels differ")
+            names = {fs.ROUTE_SMALL: "small", fs.ROUTE_TILED: "tiled",
+                     fs.ROUTE_WIDE: "wide"}
+            print(f"  n={n} k={k} d={d}: " + " ".join(
+                f"{r}{'*' if names[planned] == r else ''}={t[0]:.5f}/{t[1]:.5f}"
+                for r, t in times.items()) + " (bitwise equal)", flush=True)
+    finally:
+        fs.SMALL_MAX_D, fs.TILED_MIN_KD = saved
+        fs.filter_plan.cache_clear()
+
+
+def filter_edge_cases(torch, engine, rng):
+    """The filter's edge cases, bitwise the plain version on the exact tier,
+    through the plain and the weighted entry (unit weights bitwise the plain
+    kernel): n = 1, below one tile and not a multiple of a tile or a stage;
+    ranks 1, 2, 31, 32, 255, 256, 257 and 300; every candidate masked by
+    hm, every weight <= 0; duplicate values across warps and tiles; ds at
+    +3.4e38 and ds below every d2; k = 2,000 at d = 38 (center chunks); d
+    = 200 (the tiled kernel's 128-row stages) and 1,000 (the wide kernel);
+    widths on both sides of the small-d routing."""
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.fused_stream import filter_plan
+    shapes = [(1, 5, 3), (100, 25, 2), (1_000, 7, 38), (50_001, 25, 2),
+              (50_001, 100, 38), (20_000, 2_000, 38), (5_000, 17, 200),
+              (2_000, 300, 1000), (30_000, 25, 8), (30_000, 25, 12),
+              (30_000, 100, 8), (30_000, 100, 12), (30_000, 125, 16)]
+    ranks = (1, 2, 31, 32, 255, 256, 257, 300)
+    seen = []
+    for n, k, d in shapes:
+        x = exact_points(rng, (n, d))
+        c = exact_points(rng, (k, d))
+        dups = np.floor(rng.random((n, d)) * 3).astype(np.float32)
+        w = rng.integers(0, 5, n).astype(np.float32)
+        ds = np.floor(rng.random(n) * 5000).astype(np.float32)
+        hm = rng.random(n) < 0.7
+        variants = [("plain", x, None, None, None),
+                    ("eim", x, ds, hm, w),
+                    ("dups", dups, ds, None, None),
+                    ("masked", x, ds, np.zeros(n, bool), w),
+                    ("weightless", x, ds, hm, -rng.integers(0, 3, n).astype(np.float32)),
+                    ("ds_big", x, np.full(n, np.float32(3.4e38)), hm, None),
+                    ("ds_below", x, np.full(n, np.float32(-1.0)), hm, w)]
+        for name, xv, dv, hv, wv in variants:
+            xt, ct = cuda_t(torch, xv), cuda_t(torch, c)
+            ht = None if hv is None else cuda_t(torch, hv)
+            wt = None if wv is None else cuda_t(torch, wv)
+            for rank in ranks:
+                def run(impl, w_in):
+                    dt = None if dv is None else cuda_t(torch, dv)
+                    return engine.fused_filter(xt, ct, dt, ht, rank=rank, w=w_in,
+                                               impl=impl)
+                want = run("ref", wt)
+                got = run("kernel", wt)
+                outs = [(got, want)]
+                if wt is None:    # unit weights: bitwise the plain kernel
+                    outs.append((run("kernel", torch.ones(n, device="cuda")), got))
+                torch.cuda.synchronize()
+                for g, h in outs:
+                    check(torch.equal(g[1], h[1])
+                          and (dv is None or torch.equal(g[0], h[0])),
+                          f"filter edge n={n} k={k} d={d} {name} rank={rank}: not "
+                          "bitwise the plain version")
+        seen.append((n, k, d, tuple(filter_plan(n, k, d, sm_count(0)))[:4]))
+    print(f"filter edge cases (n, k, d, plan route/tc/sub/chunk): {seen} at ranks "
+          f"{list(ranks)}, each plain, EIM's form (ds, mask, weights), duplicate "
+          "values, every row masked, every weight <= 0, ds at +3.4e38 and below "
+          "every d2: bitwise the plain version; unit weights bitwise the plain "
+          "kernel", flush=True)
 
 
 def phase_argmin(torch, engine, P, rng, results):
@@ -1115,6 +1254,15 @@ KZ_ROUND1 = BATCHED_SHAPES[2]
 PAIRWISE_SHAPES = [(101, 101, 38), (65_536, 1_024, 38)]
 PAIRWISE_TOL = {"float32": 1e-4, "float16": 3e-2}      # tests/test_kernels.py
 KZ_Z = 100
+# --times: the filter at the super-shards, in each form its paths call:
+# #3 at rank 1 (the radius fold) at k = 25 and 100; #3 in EIM's form (a
+# float ds and a 70 % H mask) at ranks 17 and 129; #6 with integer weights
+# at rank 1, 101 (k = 25 and 125; k = 25 is phase 9's) and 300.
+FILTER_TIMES = ([("fold", n, k, d, 1, gen) for n, d, gen in SHARDS for k in (25, 100)]
+                + [("eim", n, 25, d, rank, gen) for n, d, gen in SHARDS
+                   for rank in (17, 129)]
+                + [("weighted", n, k, d, rank, gen) for n, d, gen in SHARDS
+                   for k, rank in ((25, 1), (25, KZ_Z + 1), (125, KZ_Z + 1), (25, 300))])
 
 
 @functools.lru_cache(maxsize=None)
@@ -1232,6 +1380,7 @@ def phase_weighted_filter(torch, engine, P, rng, results):
             results.append(dict(kernel="fused_filter_w", shape=(n, k, d, rank, gen),
                                 tier=tier, err=err, ms=ms, plain_ms=plain,
                                 bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    filter_edge_cases(torch, engine, rng)
 
 
 def phase_batched_assign(torch, engine, P, rng, results):
@@ -1519,9 +1668,43 @@ def phase_weighted(torch, engine, P, rng, counters):
           "unit-weight weighted mrg differs from the plain mrg")
     print("unit-weight weighted mrg kddlike n=4e6 (256 MiB) == plain mrg bitwise "
           "(centers, radius2, rounds; weights sum to n)", flush=True)
+    float_weight_repeat(torch, xk, rng, ex, obj)
     for name, c in coreset_in_memory(torch, engine, P, counters).items():
         totals[name] += c
     return totals
+
+
+def float_weight_repeat(torch, x, rng, ex, obj):
+    """Weighted mrg and kz_center twice each on the card with non-integer
+    weights (uniform in [0, 4), about 1 % zeros): the sums entry adds f32
+    weights by atomics, so a cluster weight's last bits may follow the
+    order the CTAs add in. Prints whether the two runs' centers, cluster
+    weights and kz_center results are bitwise equal, and the largest
+    relative difference of a cluster weight; raises only where the two runs
+    give the same centers and weights further apart than f32 rounding of
+    the sums."""
+    from repro_torch.core import kz_center, mrg
+    from repro_torch.data.source import HostSource, WeightedSource
+    w = (rng.random(x.shape[0]) * 4).astype(np.float32)
+    w[rng.random(x.shape[0]) < 0.01] = 0.0
+    src = WeightedSource(HostSource(x), w)
+    runs = [mrg(src, 25, executor=ex, objective=obj) for _ in range(2)]
+    kz = [kz_center(src, 25, KZ_Z, executor=ex) for _ in range(2)]
+    torch.cuda.synchronize()
+    a, b = runs
+    rel = ((a.weights - b.weights).abs() / a.weights.abs().clamp_min(1e-30)).max().item()
+    if torch.equal(a.centers, b.centers):
+        check(rel <= 1e-5, f"float weights: the same centers, cluster weights {rel} "
+              "apart, beyond f32 rounding of the sums")
+    print("float-weight repeat, weighted kddlike n=4e6 (256 MiB), weights in [0, 4): "
+          f"mrg centers_equal={torch.equal(a.centers, b.centers)} "
+          f"radius2_equal={a.radius2.item() == b.radius2.item()} "
+          f"weights_equal={torch.equal(a.weights, b.weights)} "
+          f"max_weight_rel_diff={rel!r} weights_sum={a.weights.sum().item()!r} / "
+          f"{b.weights.sum().item()!r}; kz_center "
+          f"centers_equal={torch.equal(kz[0].centers, kz[1].centers)} "
+          f"radius2={kz[0].radius2.item()!r} / {kz[1].radius2.item()!r} "
+          f"coreset_size={kz[0].coreset_size} / {kz[1].coreset_size}", flush=True)
 
 
 def coreset_in_memory(torch, engine, P, counters):
@@ -1694,6 +1877,10 @@ def phase_kz_profile(torch, P, rng):
     print("profile: no index_add_ or scatter kernel; the assign "
           + "; ".join(f"{n[:40]} {ms:.4f} ms over {count} launches"
                       for ms, count, n in assign), flush=True)
+    filt = [(ms, count, n) for n, (ms, count) in by_name.items() if "filter_" in n]
+    print("profile: the weighted filter "
+          + "; ".join(f"{n[:40]} {ms:.4f} ms over {count} launches"
+                      for ms, count, n in filt), flush=True)
 
 
 def phase_sketch_profile(torch, P):
@@ -1743,7 +1930,11 @@ def times_of(src: str) -> int:
     row weights into per-cluster sums, by the sums entry where the tree has
     it, else by the kernel and ``index_add_`` as the weighted reducer and
     select_coreset did. ``representatives`` is in-memory select_coreset's
-    per-center nearest row (kddlike n=400,000, k=100)."""
+    per-center nearest row (kddlike n=400,000, k=100). The filter's forms
+    (``FILTER_TIMES``) call ``engine.fused_filter(..., impl="kernel")``,
+    their digest over ``(ds, tops)``; ``merge`` is ``engine.merge_top_k`` of
+    one kddlike super-shard's rank-101 tops into a fresh carry, the
+    per-block merge that follows each weighted filter launch."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1820,6 +2011,31 @@ def times_of(src: str) -> int:
     out.append(dict(kernel="select_coreset", shape=[400_000, 100, 38, "kddlike"],
                     form="representatives", ms=device_ms(torch, fn, reps=10),
                     digest=digest(fn())))
+    merged = None
+    for form, n, k, d, rank, gen in FILTER_TIMES:
+        xt = torch.from_numpy(P.GENERATORS[gen](n, d=d, seed=5)).cuda()
+        ct = xt[torch.from_numpy(rng.choice(n, k, replace=False)).cuda()]
+        ds0 = hm = wt = None
+        if form == "eim":
+            ds0 = torch.from_numpy((rng.random(n) * 5000).astype(np.float32)).cuda()
+            hm = torch.from_numpy(rng.random(n) < 0.7).cuda()
+        elif form == "weighted":
+            wt = torch.from_numpy(int_weights(rng, n)).cuda()
+
+        def filt(ds, xt=xt, ct=ct, hm=hm, wt=wt, rank=rank):
+            return engine.fused_filter(xt, ct, ds, hm, rank=rank, w=wt, impl="kernel")
+        ds_out, tops = filt(None if ds0 is None else ds0.clone())
+        scratch = None if ds0 is None else ds0.clone()
+        out.append(dict(kernel="fused_filter" if wt is None else "fused_filter_w",
+                        shape=[n, k, d, rank, gen], form=form,
+                        ms=device_ms(torch, lambda: filt(scratch)),
+                        digest=digest(*(t for t in (ds_out, tops) if t is not None))))
+        if form == "weighted" and (k, rank, gen) == (25, KZ_Z + 1, "kddlike"):
+            merged = tops
+    carry = engine.top_k_init(KZ_Z + 1, "cuda")
+    fn = lambda: engine.merge_top_k(carry, merged, KZ_Z + 1)
+    out.append(dict(kernel="merge_top_k", shape=list(merged.shape), form="merge",
+                    ms=device_ms(torch, fn), digest=digest(fn())))
     for row in out:
         print(json.dumps(dict(row, src=src)), flush=True)
     return 0

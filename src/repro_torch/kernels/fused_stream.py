@@ -9,7 +9,8 @@ per-block passes of the source folds (``engine.fold_min_d2``,
     top-``rank`` of the masked ``new_ds``, at any rank (a 256-row tile
     gives at most 256 values; the wrapper fills the slots past them). At
     ``rank=1`` with no ``ds`` it is the covering-radius fold's block max
-    of min-distances.
+    of min-distances. ``filter_plan`` routes it to one of three kernels
+    (register-tiled, small-d, one thread a row), all bitwise alike.
   * ``fused_filter_w_cuda`` (the same source's weighted entry) for
     ``fused_filter_blocks_w``: per-row weights ``w`` also gate candidacy
     (``w <= 0`` rows never enter the top-k; their ``ds`` still updates).
@@ -42,7 +43,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .assign import _TILE_FLOATS, assign_outputs
+from .assign import _ROWS, _TILE_FLOATS, assign_outputs
 from .ref import BIG, FILTER_TILE_ROWS, NEG
 from .ref import assign_nearest as fused_assign_ref  # noqa: F401
 from .ref import fused_argmin as fused_argmin_ref  # noqa: F401
@@ -57,9 +58,9 @@ _CARRY_INIT = int(np.array(BIG, np.float32).view(np.uint32)) << 32
 @functools.lru_cache(maxsize=None)
 def _filter_lib():
     lib = _build.library("fused_filter")
-    lib.repro_fused_filter.argtypes = [_P] * 5 + [_I] * 6 + [_P]
+    lib.repro_fused_filter.argtypes = [_P] * 5 + [_I] * 11 + [_P]
     lib.repro_fused_filter.restype = _I
-    lib.repro_fused_filter_w.argtypes = [_P] * 6 + [_I] * 6 + [_P]
+    lib.repro_fused_filter_w.argtypes = [_P] * 6 + [_I] * 11 + [_P]
     lib.repro_fused_filter_w.restype = _I
     lib.repro_filter_tile_rows.restype = _I
     if lib.repro_filter_tile_rows() != FILTER_TILE_ROWS:
@@ -128,6 +129,89 @@ def argmin_plan(n: int, m: int, d: int, sms: int) -> ArgminPlan:
     return ArgminPlan(0, 0, 1, min(-(-n // tile), 4 * sms), 0)
 
 
+class FilterPlan(NamedTuple):
+    route: int       # ROUTE_TILED, ROUTE_SMALL or ROUTE_WIDE
+    tc: int          # tiled: centers a thread (tiles of 16·tc); small: the
+                     # register width D (2, 4 or 8); wide: 0
+    sub: int         # tiled: 128-row sub-tiles of a stage (2: a stage is a
+                     # tile; 1: a tile is two stages); else 0
+    chunk: int       # tiled: center tiles resident at once; small: centers
+                     # a shared chunk; wide: centers a shared tile
+    grid_x: int      # CTAs
+    smem: int        # dynamic shared bytes
+
+
+ROUTE_WIDE, ROUTE_SMALL, ROUTE_TILED = 0, 1, 2
+_SMALL_TILES = 4            # csrc/fused_filter.cu kSmallTiles: tiles a CTA
+_SMALL_CENTER_F4 = 2048     # float4 of centers a small-d chunk, 32 KB
+# Where each filter kernel is the faster one, measured on an H100 80GB
+# HBM3 (700 W) by chip_smoke.py's filter routing lines (phase 2c) at 1e6
+# rows, rank 1: the small-d kernel up to d = SMALL_MAX_D (it takes up to
+# 8; k = 25, d = 8: 30 us against 46 for the one-thread-a-row kernel and
+# 64 for the tiled one), past it the tiled kernel from k·d = TILED_MIN_KD
+# (k = 25, d = 16: 86 against 98 us; k = 100, d = 12: 138 against 238)
+# and the one-thread-a-row kernel below it (k = 25, d = 12: 73 against
+# 75 us) and where a 16-center tile does not fit (d past ~200).
+SMALL_MAX_D = 8
+TILED_MIN_KD = 400
+
+
+def _filter_tiled(n: int, k: int, d: int, sms: int, sub: int):
+    """The tiled filter kernel's plan at 128·sub-row stages, or None where
+    not even one 16-center tile fits beside two stages. Its shared memory:
+    two row stages and their norms, the tile's 256 candidates, as many
+    center tiles (j-major floats and norms) as fit, in chunks with each
+    row's min so far carried where not all do."""
+    rows_stage = _ROWS * sub
+    fixed = 4 * (2 * d * (rows_stage + 4) + rows_stage + FILTER_TILE_ROWS + d)
+    for most in range(8, 0, -1):       # centers a thread, at most
+        ctiles = -(-k // (16 * most))
+        tc = -(-(-(-k // ctiles)) // 16)
+        tile_bytes = 4 * 16 * tc * (d + 1)
+        if fixed + ctiles * tile_bytes <= _build.SMEM_LIMIT:
+            chunk, carried = ctiles, 0
+        else:
+            carried = 4 * rows_stage
+            chunk = (_build.SMEM_LIMIT - fixed - carried) // tile_bytes
+        if chunk >= 1:
+            smem = fixed + chunk * tile_bytes + carried
+            ctas = 2 if 2 * (smem + 1024) <= _build.SMEM_PER_SM else 1
+            tiles = -(-n // FILTER_TILE_ROWS)
+            return FilterPlan(ROUTE_TILED, tc, sub, chunk,
+                              min(tiles, ctas * sms), smem)
+    return None
+
+
+@functools.lru_cache(maxsize=1024)
+def filter_plan(n: int, k: int, d: int, sms: int) -> FilterPlan:
+    """Launch shape of the filter over ``n`` rows and ``k`` centers on
+    ``sms`` SMs. Up to d = ``SMALL_MAX_D``, the small-d kernel: a CTA holds
+    4 tiles, a row of each a thread, and stages the centers once as float4
+    (coordinates padded with zeros to D, then the norm; chunks of up to 32
+    KB). From k·d = ``TILED_MIN_KD``, the tiled kernel: 256-row stages (a
+    stage a tile) where two of them, all the centers and the candidates fit
+    two CTAs a SM, else 128-row stages (a tile two stages of one CTA); the
+    CTAs (two a SM, one where the shared memory holds no more) grid-stride
+    over tiles. Elsewhere, and where not even a 16-center tile fits (d past
+    ~200), the one-thread-a-row kernel, a tile a CTA."""
+    tiles = -(-n // FILTER_TILE_ROWS)
+    if d <= SMALL_MAX_D:
+        width = 2 if d <= 2 else 4 if d <= 4 else 8
+        per = width // 4 + 1                   # float4 a center
+        kc = min(k, _SMALL_CENTER_F4 // per)
+        return FilterPlan(ROUTE_SMALL, width, 0, kc,
+                          -(-tiles // _SMALL_TILES), 16 * per * kc)
+    if k * d >= TILED_MIN_KD:
+        plan = _filter_tiled(n, k, d, sms, 2)
+        if (plan is None or 2 * (plan.smem + 1024) > _build.SMEM_PER_SM
+                or 16 * plan.tc * plan.chunk < k):
+            plan = _filter_tiled(n, k, d, sms, 1)
+        if plan is not None:
+            return plan
+    tc = min(k, _TILE_FLOATS // (d + 1))
+    return FilterPlan(ROUTE_WIDE, 0, 0, tc, tiles, 4 * tc * (d + 1))
+
+
 def _check_points(x: torch.Tensor, c: torch.Tensor):
     """Points ``x (n, d)`` and centers ``c (k, d)``: contiguous float32
     matrices of one width. Returns ``(n, d, k)``."""
@@ -156,7 +240,7 @@ def _filter_launch(entry: str, x, c, ds, hm, w, rank: int):
         if t is not None and (t.shape != (n,) or t.dtype != dtype
                               or not t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous {dtype} ({n},)")
-    tc = min(k, _TILE_FLOATS // (d + 1))
+    plan = filter_plan(n, k, d, _build.sm_count(dev.index))
     ntiles = -(-n // FILTER_TILE_ROWS)
     tops = torch.empty((ntiles, rank), dtype=torch.float32, device=dev)
     if rank > FILTER_TILE_ROWS:
@@ -168,7 +252,7 @@ def _filter_launch(entry: str, x, c, ds, hm, w, rank: int):
     if w is not None:
         ptrs.append(w.data_ptr())
     code = getattr(lib, entry)(
-        *ptrs, tops.data_ptr(), n, k, d, tc, rank, dev.index,
+        *ptrs, tops.data_ptr(), n, k, d, rank, *plan, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, entry)
     return ds, tops

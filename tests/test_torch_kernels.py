@@ -21,10 +21,12 @@ from repro_torch.core.gonzalez import _gonzalez_device
 from repro_torch.kernels import _build, engine
 from repro_torch.kernels.assign import (WIDE_MAX_D, WIDE_MAX_KD, assign_nearest_cuda,
                                         assign_plan)
-from repro_torch.kernels._build import SMEM_LIMIT
+from repro_torch.kernels._build import SMEM_LIMIT, SMEM_PER_SM
 from repro_torch.kernels.fused_argfar import (MAX_CTAS_PER_SM, fused_min_argmax_cuda,
                                               gon_plan)
-from repro_torch.kernels.fused_stream import argmin_plan
+from repro_torch.kernels.fused_stream import (ROUTE_SMALL, ROUTE_TILED, ROUTE_WIDE,
+                                              SMALL_MAX_D, TILED_MIN_KD, argmin_plan,
+                                              filter_plan)
 
 _NEG = np.float32(-3.4e38)
 
@@ -162,7 +164,7 @@ def test_launch_plans_fit_shared_memory(d):
     assert argmin_plan(100, 5, 1000, sms).tc == 0
 
 
-@pytest.mark.parametrize("d", [1, 2, 3, 38, 64, 65, 200, 203, 1000])
+@pytest.mark.parametrize("d", [1, 2, 3, 8, 12, 38, 64, 65, 200, 203, 1000])
 def test_assign_plan_fits_shared_memory_and_covers(d):
     # csrc/assign.cu's shared-memory layout, recomputed here, for 132 SMs
     sms = 132
@@ -196,6 +198,48 @@ def test_assign_plan_fits_shared_memory_and_covers(d):
             small = d <= WIDE_MAX_D or k * d < WIDE_MAX_KD
             assert (assign_plan(573_580, k, d, sms, 1, sums).tc == 0) == (small or not fits)
     assert assign_plan(20_000, 2000, 38, sms).chunk < -(-2000 // 128)    # chunks
+    _check_filter_plan(d, sms)
+
+
+def _check_filter_plan(d, sms):
+    # csrc/fused_filter.cu's launch shapes, recomputed here: shared memory,
+    # tiles as whole stages of one CTA, every tile covered, the routing
+    for k in (1, 25, 125, 300, 2000):
+        for n in (1, 100, 256, 257, 573_580, 1_864_135):
+            f = filter_plan(n, k, d, sms)
+            tiles = -(-n // 256)
+            assert 1 <= f.grid_x
+            # the small-d and wide kernels launch without the opt-in past
+            # 48 KB: dynamic plus their static top-rank buffers stay below
+            if f.route == ROUTE_SMALL:          # 4 tiles a CTA, a row each a thread
+                per = f.tc // 4 + 1             # float4 a center: D values, the norm
+                assert f.tc in (2, 4, 8) and d <= f.tc < 4 * per
+                assert 1 <= f.chunk <= k and f.smem == 16 * per * f.chunk
+                assert f.smem + 4 * 4 * 256 <= 48 * 1024
+                assert f.grid_x == -(-tiles // 4)
+                continue
+            if f.route == ROUTE_WIDE:           # a tile a CTA
+                assert f.grid_x == tiles and f.tc == f.sub == 0
+                assert 1 <= f.chunk <= k and f.smem == 4 * f.chunk * (d + 1)
+                assert f.smem + 4 * 256 <= 48 * 1024
+                continue
+            assert f.route == ROUTE_TILED and f.smem <= SMEM_LIMIT
+            rows, tile = 128 * f.sub, 16 * f.tc
+            assert f.sub in (1, 2) and 256 % rows == 0    # a tile: 1 or 2 stages
+            assert 1 <= f.tc <= 8 and f.grid_x <= min(tiles, 2 * sms)
+            nchunks = -(-k // (f.chunk * tile))
+            assert f.chunk * tile * nchunks >= k          # every center
+            carried = 4 * rows if nchunks > 1 else 0
+            assert f.smem == 4 * (2 * d * (rows + 4) + rows + 256 + d * (f.chunk * tile + 1)
+                                  + f.chunk * tile) + carried
+            if d <= 38 and k <= 125:    # the path's shapes: 256-row stages, 2 CTAs a SM
+                assert f.sub == 2 and nchunks == 1 and 2 * (f.smem + 1024) <= SMEM_PER_SM
+        # the routing the plan's thresholds record, the tiled kernel only
+        # where a 16-center tile fits beside two 128-row stages
+        fits = 4 * (2 * d * 132 + 128 + 256 + d + 16 * (d + 1)) + 4 * 128 <= SMEM_LIMIT
+        want = (ROUTE_SMALL if d <= SMALL_MAX_D else
+                ROUTE_TILED if k * d >= TILED_MIN_KD and fits else ROUTE_WIDE)
+        assert filter_plan(573_580, k, d, sms).route == want
 
 
 def test_dispatch_auto_ref_kernel_on_cpu():
