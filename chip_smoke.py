@@ -59,7 +59,15 @@ Phases, each of which raises on failure (nothing is caught):
               up to 1000, both sides of the routing), both entries; the
               batched assign against the 2-D entry, and its
               sums entry (the weighted reducer's cluster weights) against the
-              plain assign and index_add_; the pairwise kernel in f32 and f16;
+              plain assign and index_add_; the pairwise kernel in f32 and f16
+              at the sketch's bootstraps, a large block and the JAX repo's
+              kernel-benchmark shapes (with the f32 product alone,
+              torch.mm, as a yardstick), both routes timed on both sides
+              of its plan's boundary, both grids of the large route, and
+              its edge cases, each on its planned route (n or m of 1 and
+              off every tile, d from 1 to 1,000 with odd widths on the
+              tensor cores, x and c one tensor, m past 65,535 · 64, views
+              off alignment);
   7. the weighted objective and (k,z)-center: kz_center in memory and out
               of core (a weighted host source with planted outliers, a
               1e7-point generator, an exact-tier input), weighted mrg and
@@ -87,14 +95,15 @@ without a CUDA device, and where the repository's package is missing.
 times the GON step, the per-center argmin, the assign (2-D, streamed and
 batched, alone and with the cluster sums), in-memory select_coreset's
 representative pass, the filter (#3 and #6 at the super-shards, the
-covering-radius fold, EIM's form and the weighted form) and the per-block
-top-k merge at their path shapes, in call forms that every version
-of the kernels takes, for the ``repro_torch`` under each ``SRC`` directory in
-turn (one process each, in the order given), and prints them side by side
-with a SHA-1 digest of each form's outputs, so that equal digests show
-bitwise equal results. To compare a change with its parent on one card,
-unpack the parent with ``git archive`` into a git-ignored directory and name
-the trees parent, change, change, parent.
+covering-radius fold, EIM's form and the weighted form), the per-block
+top-k merge at their path shapes, the pairwise kernel at phase 2i's shapes
+in f32 and f16, and an empty kernel (the timing floor), in call forms that
+every version of the kernels takes, for the ``repro_torch`` under each
+``SRC`` directory in turn (one process each, in the order given), and
+prints them side by side with a SHA-1 digest of each form's outputs, so
+that equal digests show bitwise equal results. To compare a change with
+its parent on one card, unpack the parent with ``git archive`` into a
+git-ignored directory and name the trees parent, change, change, parent.
 """
 from __future__ import annotations
 
@@ -113,6 +122,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+F16_TC_OPS_PER_S = 989e12      # H100 SXM f16 tensor cores, dense (data sheet)
 GON_TOL = dict(rtol=1e-5, atol=0.0)        # tests/test_kernels.py
 ASSIGN_TOL = dict(rtol=1e-4, atol=1e-4)    # tests/test_kernels.py
 NEG = float(np.float32(-3.4e38))
@@ -183,8 +193,15 @@ def fmt(ms) -> str:
     return "None" if ms is None else f"{ms:.5f}"
 
 
-def bound(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+def bound(nbytes: float, ops: float, tc_ops: float = 0.0):
+    """(least ms, what bounds it): the bytes at the HBM rate against the
+    operations, ``ops`` on the f32 units and ``tc_ops`` on the f16 tensor
+    cores, each at its own peak. A kernel that runs its product on the
+    tensor cores is held to their rate for it (at the f32 rate its bound
+    would be slower than the kernel can run); its epilogue stays on the f32
+    units, so the two times add."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / F32_OPS_PER_S + tc_ops / F16_TC_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1250,8 +1267,20 @@ BATCHED_SHAPES = [(50, 20_000, 125, 2, "unif"), (50, 20_000, 125, 38, "kddlike")
 # weighted kz_center against its t = k + z = 125 centers, where the sums
 # entry adds the cluster weights (the JSON line's assign_sums row).
 KZ_ROUND1 = BATCHED_SHAPES[2]
-# Phase 2i: the sketch's bootstrap at k=100, and a large block.
-PAIRWISE_SHAPES = [(101, 101, 38), (65_536, 1_024, 38)]
+# Phase 2i: the sketch's bootstraps (k=100 on kddlike, k=25 on unif), a
+# large block, and the JAX repo's kernel benchmark
+# (benchmarks/kernel_bench.py: 100,000 × 256 at d = 2 and 64, 20,000 ×
+# 1,024 at d = 128).
+PAIRWISE_SHAPES = [(101, 101, 38), (65_536, 1_024, 38), (26, 26, 2),
+                   (100_000, 256, 2), (100_000, 256, 64), (20_000, 1_024, 128)]
+# Phase 2i's routing lines: square outputs on both sides of pairwise_plan's
+# boundary (4, 9 and 16 large tiles at 256², 384² and 512²), both routes
+# forced, at the sketch's widths.
+PAIRWISE_ROUTING = [(s, s, d) for d in (2, 38) for s in (101, 256, 384, 512, 768, 1_024)]
+# Its grid lines: the large route in f32 with persistent CTAs against a CTA
+# a tile, on both sides of PERSIST_MIN_D.
+PAIRWISE_GRID = ([(100_000, 256, d) for d in (2, 4, 8, 16, 38)]
+                 + [(65_536, 1_024, d) for d in (2, 8, 16, 38)])
 PAIRWISE_TOL = {"float32": 1e-4, "float16": 3e-2}      # tests/test_kernels.py
 KZ_Z = 100
 # --times: the filter at the super-shards, in each form its paths call:
@@ -1481,12 +1510,28 @@ def batched_sums(torch, engine, rng, results, xt, ct, shape, tier):
                         plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None))
 
 
+def pairwise_bound(torch, n, m, d, dtype):
+    """The pairwise kernel's bound at one shape, on the route it takes: the
+    output and both inputs once against the product's 2·d·n·m operations,
+    on the tensor cores (with ~4 f32 operations a pair of epilogue) where
+    the f16 route runs there."""
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.pairwise import pairwise_plan
+    half = dtype == torch.float16
+    route = pairwise_plan(n, m, d, half, sm_count(0)).route
+    nbytes = 4 * n * m + (2 if half else 4) * (n + m) * d
+    if route == "mma":
+        return route, bound(nbytes, 4 * n * m, 2 * d * n * m)
+    return route, bound(nbytes, 2 * d * n * m)
+
+
 def phase_pairwise(torch, engine, rng, results):
     print("== phase 2i: pairwise (pairwise.cu) against its plain version",
           flush=True)
     for n, m, d in PAIRWISE_SHAPES:
         for dtype in (torch.float32, torch.float16):
             name = str(dtype).split(".")[1]
+            route, (b_ms, b_by) = pairwise_bound(torch, n, m, d, dtype)
             for tier in ("exact", "float"):
                 if tier == "exact":
                     x, c = exact_points(rng, (n, d)), exact_points(rng, (m, d))
@@ -1498,14 +1543,14 @@ def phase_pairwise(torch, engine, rng, results):
                 want = engine.pairwise_dist2(xt, ct, impl="ref")
                 torch.cuda.synchronize()
                 err = (got - want).abs().max().item()
-                label = f"pairwise n={n} m={m} d={d} {name} {tier}"
+                label = f"pairwise n={n} m={m} d={d} {name} {tier} route={route}"
                 if tier == "exact":
                     check(torch.equal(got, want), f"{label}: not bitwise")
                 else:
                     tol = PAIRWISE_TOL[name]
                     check(torch.allclose(got, want, rtol=tol, atol=10 * tol),
                           f"{label}: beyond rtol {tol} ({err})")
-                ms = plain = lib = None
+                ms = plain = lib = mm = None
                 if tier == "float":
                     ms = device_ms(torch, lambda: engine.pairwise_dist2(
                         xt, ct, impl="kernel"))
@@ -1513,14 +1558,139 @@ def phase_pairwise(torch, engine, rng, results):
                         xt, ct, impl="ref"))
                     xf, cf = xt.float(), ct.float()
                     lib = device_ms(torch, lambda: torch.cdist(xf, cf).square())
-                b_ms, b_by = bound(4 * n * m + xt.element_size() * (n + m) * d,
-                                   2 * d * n * m)
+                    # the product alone on the f32 units (cuBLAS SGEMM, TF32
+                    # off): a yardstick, never called by the port
+                    mm = device_ms(torch, lambda: torch.mm(xf, cf.T))
                 print(f"{label}: ok max_abs_err={err:.3g} kernel_ms={fmt(ms)} "
                       f"plain_ms={fmt(plain)} library_ms={fmt(lib)} (torch.cdist(x, c)"
-                      f".square() on f32) bound_ms={b_ms:.5f} ({b_by})", flush=True)
+                      f".square() on f32) product_ms={fmt(mm)} (torch.mm(x, c.T), f32, "
+                      f"no TF32) bound_ms={b_ms:.5f} ({b_by})", flush=True)
                 results.append(dict(kernel="pairwise", shape=(n, m, d, name),
                                     tier=tier, err=err, ms=ms, plain_ms=plain,
-                                    bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+                                    bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                                    route=route))
+
+
+# LARGE_MIN_TILES that makes pairwise_plan take each route (``large``: the
+# tensor cores for f16)
+PAIRWISE_ROUTES = {"small": 1 << 30, "large": 0}
+
+
+def pairwise_routing(torch, engine):
+    """Both routes of the pairwise kernel at square outputs on both sides
+    of ``pairwise_plan``'s boundary (``PAIRWISE_ROUTING``), each bitwise
+    the plain version on the exact tier, with its time: the measurements
+    that set ``LARGE_MIN_TILES``. Then the large route's two grids
+    (``PAIRWISE_GRID``), which set ``PERSIST_MIN_D``."""
+    from repro_torch.kernels import pairwise as pw
+    from repro_torch.kernels._build import sm_count
+    rng = np.random.default_rng(11)
+    saved = pw.LARGE_MIN_TILES, pw.PERSIST_MIN_D
+
+    def restore():
+        pw.LARGE_MIN_TILES, pw.PERSIST_MIN_D = saved
+        pw.pairwise_plan.cache_clear()
+    try:
+        for n, m, d in PAIRWISE_ROUTING:
+            x, c = exact_points(rng, (n, d)), exact_points(rng, (m, d))
+            for dtype in (torch.float32, torch.float16):
+                half = dtype == torch.float16
+                xt, ct = cuda_t(torch, x).to(dtype), cuda_t(torch, c).to(dtype)
+                want = engine.pairwise_dist2(xt, ct, impl="ref")
+                times = {}
+                for least in PAIRWISE_ROUTES.values():
+                    pw.LARGE_MIN_TILES = least
+                    pw.pairwise_plan.cache_clear()
+                    name = pw.pairwise_plan(n, m, d, half, sm_count(0)).route
+                    got = engine.pairwise_dist2(xt, ct, impl="kernel")
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, want), f"pairwise route={name} n={n} m={m} "
+                          f"d={d} {dtype}: not bitwise the plain version")
+                    times[name] = round(device_ms(
+                        torch, lambda: engine.pairwise_dist2(xt, ct, impl="kernel")), 5)
+                restore()
+                print(f"pairwise routing n={n} m={m} d={d} {str(dtype).split('.')[1]}: "
+                      f"planned={pw.pairwise_plan(n, m, d, half, sm_count(0)).route} "
+                      f"ms={times} (each bitwise the plain version)", flush=True)
+        for n, m, d in PAIRWISE_GRID:
+            x, c = exact_points(rng, (n, d)), exact_points(rng, (m, d))
+            xt, ct = cuda_t(torch, x), cuda_t(torch, c)
+            want = engine.pairwise_dist2(xt, ct, impl="ref")
+            times = {}
+            for grid, least in (("persistent", 0), ("a tile a CTA", 1 << 30)):
+                pw.PERSIST_MIN_D = least
+                pw.pairwise_plan.cache_clear()
+                got = engine.pairwise_dist2(xt, ct, impl="kernel")
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), f"pairwise grid {grid} n={n} m={m} d={d}: "
+                      "not bitwise the plain version")
+                times[grid] = round(device_ms(
+                    torch, lambda: engine.pairwise_dist2(xt, ct, impl="kernel")), 5)
+            restore()
+            plan = pw.pairwise_plan(n, m, d, False, sm_count(0))
+            print(f"pairwise grid n={n} m={m} d={d} float32 {plan.route}: planned="
+                  f"{'persistent' if plan.grid < plan.tiles else 'a tile a CTA'} "
+                  f"(slab {plan.ks}) ms={times} (each bitwise the plain version)", flush=True)
+    finally:
+        restore()
+
+
+def pairwise_edge_cases(torch, engine, rng):
+    """The pairwise kernel's edge cases, bitwise the plain version on the
+    exact tier in f32 and f16, each on the route it is meant to test
+    (checked, so that a change of the boundary cannot move a case off its
+    path): n = 1 and m = 1; n and m off every tile; d = 1, 15, 17 and 39
+    (f16 padding to 16, and the tensor-core kernel's plain loads of odd
+    widths) and 1,000 (slabs past a small tile's whole staging); m of 1
+    and 48 on the large route (masked columns of a 128 × 128 tile); x and c
+    one tensor (the sketch's call) on both routes; m past 65,535 · 64 (the
+    previous grid's cap); shapes just on each side of the route boundary;
+    and x and c as views that start one element past an aligned address
+    (f16: 2 bytes off a 4-byte boundary, so the tensor-core kernel takes
+    plain loads in place of its 4-byte copies)."""
+    from repro_torch.kernels import pairwise as pw
+    from repro_torch.kernels._build import sm_count
+    # (n, m, d, route, shifted); m None: c is x; an f16 "large" case takes "mma"
+    cases = [(1, 1, 38, "small"), (1, 1, 1, "small"), (1, 300, 38, "small"),
+             (300, 1, 38, "small"), (129, 65, 38, "small"), (37, 45, 3, "small"),
+             (300, 200, 1, "small"), (150, 90, 1_000, "small"), (101, None, 38, "small"),
+             (1_000, 333, 17, "large"), (200, 1_100, 17, "large"), (700, 513, 1_000, "large"),
+             (1_100, 600, 1_000, "large"), (5_000, 1_000, 100, "large"),
+             (2_048, None, 38, "large"), (2, 65_535 * 64 + 3, 2, "large"),
+             (8_192, 48, 38, "large"), (8_192, 1, 2, "large")]
+    cases += [(4_096, 1_024, d, "large") for d in (1, 15, 17, 39)]
+    # around the boundary, at 4 column tiles of 128
+    hi = 128 * -(-pw.LARGE_MIN_TILES // 4)
+    cases += [(hi - 128, 512, 38, "small"), (hi, 512, 38, "large")]
+    cases = [case + (False,) for case in cases]
+    cases += [(101, 101, 38, "small", True), (1_000, 333, 16, "large", True),
+              (4_096, 1_024, 38, "large", True)]
+    seen = []
+    for n, m, d, want_route, shifted in cases:
+        x = exact_points(rng, (n, d))
+        c = x if m is None else exact_points(rng, (m, d))
+        for dtype in (torch.float32, torch.float16):
+            xt = cuda_t(torch, x).to(dtype)
+            ct = xt if m is None else cuda_t(torch, c).to(dtype)
+            if shifted:
+                xt, ct = (torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
+                          for t in (xt, ct))
+                check(xt.data_ptr() % 16 == xt.element_size() and xt.is_contiguous(),
+                      "pairwise edge: the shifted view is not one element off")
+            half = dtype == torch.float16
+            route = pw.pairwise_plan(n, ct.shape[0], d, half, sm_count(0)).route
+            want = "mma" if half and want_route == "large" else want_route
+            label = (f"pairwise edge n={n} m={ct.shape[0]} d={d} {dtype} route={route} "
+                     f"(x is c: {m is None}, shifted: {shifted})")
+            check(route == want, f"{label}: planned off its route {want}")
+            got = engine.pairwise_dist2(xt, ct, impl="kernel")
+            want_d2 = engine.pairwise_dist2(xt, ct, impl="ref")
+            torch.cuda.synchronize()
+            check(torch.equal(got, want_d2), f"{label}: not bitwise")
+            seen.append((n, "x" if m is None else m, d, route) + (("shifted",) if shifted
+                                                                  else ()))
+    print(f"pairwise edge cases (n, m, d, route; f32 then f16): {seen} bitwise the "
+          "plain version, each on its route", flush=True)
 
 
 def report_syncs(syncs):
@@ -1934,7 +2104,11 @@ def times_of(src: str) -> int:
     (``FILTER_TIMES``) call ``engine.fused_filter(..., impl="kernel")``,
     their digest over ``(ds, tops)``; ``merge`` is ``engine.merge_top_k`` of
     one kddlike super-shard's rank-101 tops into a fresh carry, the
-    per-block merge that follows each weighted filter launch."""
+    per-block merge that follows each weighted filter launch. The pairwise
+    kernel's ``engine`` form is ``engine.pairwise_dist2(x, c,
+    impl="kernel")`` at every shape of ``PAIRWISE_SHAPES`` in f32 and f16,
+    on float inputs; ``floor`` is an empty kernel's time by ``device_ms``
+    in the same process."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2036,6 +2210,18 @@ def times_of(src: str) -> int:
     fn = lambda: engine.merge_top_k(carry, merged, KZ_Z + 1)
     out.append(dict(kernel="merge_top_k", shape=list(merged.shape), form="merge",
                     ms=device_ms(torch, fn), digest=digest(fn())))
+    prng = np.random.default_rng(7)
+    for n, m, d in PAIRWISE_SHAPES:
+        x = prng.normal(size=(n, d)).astype(np.float32)
+        c = prng.normal(size=(m, d)).astype(np.float32)
+        for dtype in (torch.float32, torch.float16):
+            xt = torch.from_numpy(x).cuda().to(dtype)
+            ct = torch.from_numpy(c).cuda().to(dtype)
+            fn = lambda: engine.pairwise_dist2(xt, ct, impl="kernel")
+            out.append(dict(kernel="pairwise", shape=[n, m, d, str(dtype).split(".")[1]],
+                            form="engine", ms=device_ms(torch, fn), digest=digest(fn())))
+    out.append(dict(kernel="empty_kernel", shape=[], form="floor",
+                    ms=device_ms(torch, lambda: torch.cuda._sleep(1))))
     for row in out:
         print(json.dumps(dict(row, src=src)), flush=True)
     return 0
@@ -2127,6 +2313,8 @@ def main() -> int:
     phase_weighted_filter(torch, engine, P, rng, results)
     phase_batched_assign(torch, engine, P, rng, results)
     phase_pairwise(torch, engine, rng, results)
+    pairwise_routing(torch, engine)
+    pairwise_edge_cases(torch, engine, rng)
     phase_ring(torch, P)
     counters = {"gon_step": fused_min_argmax_cuda, "assign": assign_nearest_cuda}
     totals = phase_mrg(torch, mrg, counters, P)
@@ -2194,6 +2382,10 @@ def main() -> int:
                         "ms": main["ms"], "plain_ms": main["plain_ms"],
                         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                         "library_ms": main["library_ms"], "check": "pass"})
+        if name == "pairwise":   # pairwise_plan's route at each shape of phase 2i
+            kernels[-1]["routes"] = {"x".join(map(str, r["shape"][:3])) + " "
+                                     + r["shape"][3]: r["route"]
+                                     for r in mine if r["tier"] == "float"}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

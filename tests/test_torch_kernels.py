@@ -27,6 +27,8 @@ from repro_torch.kernels.fused_argfar import (MAX_CTAS_PER_SM, fused_min_argmax_
 from repro_torch.kernels.fused_stream import (ROUTE_SMALL, ROUTE_TILED, ROUTE_WIDE,
                                               SMALL_MAX_D, TILED_MIN_KD, argmin_plan,
                                               filter_plan)
+from repro_torch.kernels.pairwise import (LARGE_MIN_TILES, MMA_SMEM, PERSIST_MIN_D,
+                                          pairwise_plan)
 
 _NEG = np.float32(-3.4e38)
 
@@ -162,6 +164,41 @@ def test_launch_plans_fit_shared_memory(d):
             assert a.ctiles == -(-m // 128)
     assert argmin_plan(100, 5, 203, sms).tc == 0        # the wide kernel
     assert argmin_plan(100, 5, 1000, sms).tc == 0
+    # csrc/pairwise.cu: shared memory, every output tile covered (m past the
+    # previous grid's 65,535 · 64 too), f16 slabs a multiple of 16 deep, and
+    # the routes on the measured boundaries
+    for n, m in ((1, 1), (26, 26), (101, 101), (384, 384), (512, 512), (768, 768),
+                 (65_536, 1_024), (2, 65_535 * 64 + 3), (100_000, 60), (8_192, 1)):
+        for half in (False, True):
+            p = pairwise_plan(n, m, d, half, sms)
+            assert p.smem <= SMEM_LIMIT
+            rows, cols = 16 * p.tr, 16 * p.tc
+            assert p.tiles_m == -(-m // cols) and p.tiles == -(-n // rows) * p.tiles_m
+            assert 1 <= p.grid <= p.tiles
+            large = -(-n // 128) * -(-m // 128) >= LARGE_MIN_TILES
+            if p.route == "mma":
+                assert half and large and (rows, cols) == (128, 128)
+                assert p.ks % 16 == 0 and p.smem == MMA_SMEM
+                assert p.grid == (min(p.tiles, 2 * sms) if PERSIST_MIN_D <= d <= p.ks
+                                  else p.tiles)
+                continue
+            assert p.route == ("large" if large else "small")
+            assert (rows, cols) == {"large": (128, 128), "small": (16, 16)}[p.route]
+            slabs = -(-d // p.ks)
+            assert 1 <= p.ks <= d and slabs * p.ks - d < slabs
+            assert p.ks <= 48 or p.route != "large"
+            assert p.smem == 4 * (2 * p.ks * (rows + cols + 8) + rows + cols)
+            if p.ks == d >= PERSIST_MIN_D:      # persistent: two CTAs a SM at most
+                assert p.grid <= (2 if p.route == "large" else 3) * sms
+            else:
+                assert p.grid == p.tiles
+    assert pairwise_plan(101, 101, 38, False, sms).route == "small"
+    # the measured boundary: 16 × 16 tiles at 256² (4 large tiles), the large
+    # route at 512² (16), at d = 2 and 38 alike
+    for d2 in (2, 38):
+        assert pairwise_plan(256, 256, d2, False, sms).route == "small"
+        assert pairwise_plan(512, 512, d2, False, sms).route == "large"
+    assert pairwise_plan(65_536, 1_024, 38, True, sms).route == "mma"
 
 
 @pytest.mark.parametrize("d", [1, 2, 3, 8, 12, 38, 64, 65, 200, 203, 1000])
