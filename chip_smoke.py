@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of MRG (paper Algorithm 1), coreset
-selection, the weighted and outlier objectives and the streaming sketch on
-one GPU, in memory and out of core.
+selection, the weighted and outlier objectives, the streaming sketch and
+EIM (paper §4) on one GPU, in memory and out of core.
 
     python3 chip_smoke.py        # from the root of a checkout, one Hopper card
 
@@ -84,7 +84,31 @@ Phases, each of which raises on failure (nothing is caught):
               the insertion tail apart from the coverage passes;
   9. profiles of one streamed kz_center run (no index_add_ or scatter
               kernel: the cluster weights are summed inside the assign) and
-              one sketch run.
+              one sketch run;
+  2j (run with phase 2) — the assign (#2) at the device EIM path's S
+              buffer (s_cap centers, empty slots at 1e18: 1e6 x 12,725 x 2
+              and 400,000 x 10,867 x 38) and the filter (#3) at the streamed
+              path's super-shards (1,864,135 x 18,597 x 2 at rank 129,
+              573,580 x 16,033 x 38 at rank 122, ds and a 40 % H mask),
+              each against its plain version run in row chunks of ~1 GB,
+              every kernel of each plan timed; whether #2 and #3 round each
+              pair's d2 alike on float inputs;
+  10. EIM: ``eim(x, k, 1)`` (the key is the int seed 1, i.e.
+              jax.random.PRNGKey(1)) — 10a the device path on UNIF/GAU/UNB
+              at n = 1e6 (k = 25, 100) and kddlike n = 400,000, with
+              launches, synchronising calls (exactly iterations + 2),
+              iterations, |S|, |C| and overflow, against impl="ref" run with
+              chunk= from a 1 GB tile, against SimExecutor(m=50), and beside
+              mrg's radius and wall on the same input; 10b out of core on
+              HostStreamExecutor (the 1e7-point generator at 64 MiB, kddlike
+              n = 4e6 from host RAM at 256 MiB; exactly 2 synchronising calls
+              an iteration; peak device memory within a stated allowance),
+              against impl="ref" and the device path; 10c the exact tier
+              (integer grids at n = 1e6, d = 2, and n = 5e5, d = 38): the
+              device path on the kernels and on the plain route,
+              SimExecutor and HostStreamExecutor, all bitwise; 10d profiles
+              of one run of each form (device busy and idle share, time by
+              kernel, host time enqueueing the sampler's draws).
 
 Prints the card's name and power limit, one JSON line describing every
 kernel, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -132,10 +156,13 @@ NEG = float(np.float32(-3.4e38))
 # (HostStreamExecutor's round 1: kddlike at 256 MiB, unif n=1e7 at 64
 # MiB) and on the final GON's union of 50 × 25 centers (one machine, a
 # small launch), and pokerlike's round 1 (n = 25,010 on 50 machines, d =
-# 10); assign over all n points (SimExecutor.radius2).
+# 10), and EIM's final GON over its compacted sample (one machine of 2^17
+# rows, |C| padded to a power of two: unif n=1e6 and kddlike n=400,000 at
+# k=25); assign over all n points (SimExecutor.radius2).
 GON_SHAPES = [(50, 20_000, 2, "unif"), (50, 20_000, 38, "kddlike"),
               (1, 573_580, 38, "kddlike"), (1, 1_864_135, 2, "unif"),
-              (1, 1_250, 2, "unif"), (50, 501, 10, "pokerlike")]
+              (1, 1_250, 2, "unif"), (50, 501, 10, "pokerlike"),
+              (1, 131_072, 2, "unif"), (1, 131_072, 38, "kddlike")]
 ASSIGN_SHAPES = [(1_000_000, 25, 2, "unif"), (1_000_000, 100, 2, "unif"),
                  (400_000, 100, 38, "kddlike")]
 MRG_CONFIGS = [("unif", 1_000_000, 2, 25), ("unif", 1_000_000, 2, 100),
@@ -2075,6 +2102,468 @@ def phase_sketch_profile(torch, P):
     for name, (ms, count) in sorted(by_name.items(), key=lambda r: -r[1][0])[:8]:
         print(f"  {ms:9.4f} ms  {count:6d}x  {name[:90]}", flush=True)
 
+# -- slice 8: EIM (paper §4) --------------------------------------------------
+
+EIM_KEY = 1                  # eim's key: the int seed 1, jax.random.PRNGKey(1)
+EIM_EPS, EIM_PHI = 0.1, 8.0  # eim's defaults
+# Phase 2j: #2 at the device path's S buffer (unif n=1e6 and kddlike
+# n=400,000, k=25: s_cap centers, the last ~5 % at the 1e18 sentinel of
+# empty slots) and #3 at the streamed path's super-shards (unif n=1e7 at 64
+# MiB, kddlike n=4e6 at 256 MiB; k=25: s_cap centers, EIM's rank
+# round(phi ln n), ds and a ~40 % H mask), each against its plain version
+# run in row chunks of about PLAIN_TILE_BYTES, as the plain route of
+# phase 10's impl="ref" runs.
+EIM_ASSIGN = [(1_000_000, 2, 25, "unif"), (400_000, 38, 25, "kddlike")]
+EIM_FILTER = [(10_000_000, 64 * MiB, 2, 25, "unif"),
+              (4_000_000, 256 * MiB, 38, 25, "kddlike")]
+PLAIN_TILE_BYTES = 1 << 30
+# Phase 10a: the device path on the paper's Fig. 4 inputs and kddlike.
+EIM_CONFIGS = [(gen, 1_000_000, 2, k) for gen in ("unif", "gau", "unb")
+               for k in (25, 100)] + [("kddlike", 400_000, 38, 25)]
+# Phase 10c: the exact tier (integer coordinates): Fig. 4's inputs on the
+# [0, 1024)^2 grid and phase 7's n = 5e5, d = 38 exact cloud.
+EIM_EXACT = [("unif", 1_000_000, 2, 25), ("gau", 1_000_000, 2, 25),
+             ("unb", 1_000_000, 2, 25), ("exact", 500_000, 38, 25)]
+
+
+def eim_params(n, k):
+    """EIM's schedule at n, k: (threshold, s_cap, rank)."""
+    from repro_torch.core.eim import _params
+    _, threshold, s_cap, _, rank, _, _ = _params(n, k, EIM_EPS, EIM_PHI)
+    return threshold, s_cap, rank
+
+
+def on_grid(x):
+    """``x`` rounded onto the integer grid [0, side)^d: the exact tier. The
+    side is 1024 where 2·d·side^2 stays below 2^24 (d = 2), else the largest
+    that does (469 at d = 38), so |x|^2 + |c|^2 and every partial sum of
+    either version are exact f32 integers in any order."""
+    x = np.asarray(x, np.float64)
+    d = x.shape[1]
+    side = min(1024, int(np.sqrt(2.0 ** 24 / (2 * d))))
+    lo, hi = x.min(0), x.max(0)
+    return np.floor((x - lo) / (hi - lo) * (side - 0.001)).astype(np.float32)
+
+
+def eim_points(P, gen, n, d, tier, seed=0):
+    x = P.GENERATORS[gen](n, d=d, seed=seed)
+    return on_grid(x) if tier == "exact" else x
+
+
+def s_buffer(x, s_cap, rng):
+    """An S buffer of the device path: ~95 % of s_cap sampled rows in row
+    order, the rest at the 1e18 sentinel of empty slots."""
+    rows = np.sort(rng.choice(x.shape[0], s_cap - s_cap // 20, replace=False))
+    c = np.full((s_cap, x.shape[1]), 1e18, np.float32)
+    c[:rows.size] = x[rows]
+    return c
+
+
+def plain_chunk(engine, n, m, d):
+    """The plain route's row chunk for entry points that take ``chunk``
+    only (``eim``, ``fused_filter``): what ``memory_budget=PLAIN_TILE_BYTES``
+    resolves to on the ops that take a budget."""
+    return engine.resolve_chunk(n, m, d, memory_budget=PLAIN_TILE_BYTES)
+
+
+def phase_eim_shapes(torch, engine, P, rng, results):
+    """#2 and #3 at EIM's shapes against their plain versions (in row
+    chunks: unchunked, the plain versions would build 51 to 139 GB), each
+    kernel of each plan timed; and whether #2 and #3 round every pair's d2
+    alike on float inputs (``alike[d]``): where they do, the device path
+    and the streamed path must agree bitwise on the kernels."""
+    print("== phase 2j: assign (#2) and filter (#3) at EIM's shapes against "
+          "their plain versions (in row chunks)", flush=True)
+    from repro_torch.kernels import assign
+    from repro_torch.kernels import fused_stream as fs
+    from repro_torch.kernels._build import sm_count
+    alike = {}
+    for n, d, k, gen in EIM_ASSIGN:
+        _, s_cap, _ = eim_params(n, k)
+        chunk = plain_chunk(engine, n, s_cap, d)
+        for tier in ("exact", "float"):
+            x = eim_points(P, gen, n, d, tier)
+            xt, ct = cuda_t(torch, x), cuda_t(torch, s_buffer(x, s_cap, rng))
+            got = engine.assign_nearest(xt, ct, impl="kernel")
+            want = engine.assign_nearest(xt, ct, impl="ref",
+                                         memory_budget=PLAIN_TILE_BYTES)
+            # #3 on the same pairs: the d2 the streamed path compares
+            ds = torch.full((n,), engine.ref.BIG, device="cuda")
+            engine.fused_filter(xt, ct, ds, rank=1, impl="kernel")
+            torch.cuda.synchronize()
+            err = (got[1] - want[1]).abs().max().item()
+            label = f"assign eim n={n} k={s_cap} d={d} {tier}"
+            if tier == "exact":
+                check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                      f"{label}: not bitwise the plain version")
+                check(torch.equal(ds, got[1]), f"{label}: #3 d2 differs from #2")
+            else:
+                tol = dist2_tol(xt, ct[want[0].long()])
+                check(bool(((got[1] - want[1]).abs() <= tol).all()),
+                      f"{label}: d2 beyond tolerance ({err})")
+                moved = (got[0] != want[0]).nonzero().flatten()
+                xr = xt[moved]
+                dg = ((xr - ct[got[0][moved].long()]) ** 2).sum(1)
+                dw = ((xr - ct[want[0][moved].long()]) ** 2).sum(1)
+                check(bool(((dg - dw).abs() <= 2 * tol[moved]).all()),
+                      f"{label}: index differs beyond a tie")
+                alike[d] = torch.equal(ds, got[1])
+            plain = device_ms(torch, lambda: engine.assign_nearest(
+                xt, ct, impl="ref", memory_budget=PLAIN_TILE_BYTES),
+                reps=2, warmup=1)
+            times = {}
+            saved = assign.WIDE_MAX_D, assign.WIDE_MAX_KD
+            try:
+                for route, th in (("tiled", (0, 0)), ("wide", (1 << 30, 1 << 30))):
+                    assign.WIDE_MAX_D, assign.WIDE_MAX_KD = th
+                    assign.assign_plan.cache_clear()
+                    again = engine.assign_nearest(xt, ct, impl="kernel")
+                    check(torch.equal(again[0], got[0]) and torch.equal(again[1], got[1]),
+                          f"{label}: the {route} kernel differs")
+                    times[route] = device_ms(torch, lambda: engine.assign_nearest(
+                        xt, ct, impl="kernel"), reps=5, warmup=1)
+            finally:
+                assign.WIDE_MAX_D, assign.WIDE_MAX_KD = saved
+                assign.assign_plan.cache_clear()
+            planned = "wide" if assign.assign_plan(n, s_cap, d, sm_count(0)).tc == 0 else "tiled"
+            b_ms, b_by = bound(4 * (n * d + s_cap * d + 2 * n),
+                               n * s_cap * (2 * d + 5) + 2 * d * (n + s_cap))
+            print(f"{label}: ok max_abs_err={err:.3g} planned={planned} "
+                  f"kernel_ms={times[planned]:.5f} tiled_ms={times['tiled']:.5f} "
+                  f"wide_ms={times['wide']:.5f} plain_ms={plain:.5f} "
+                  f"(chunk={chunk} rows) bound_ms={b_ms:.5f} ({b_by}) "
+                  f"library_ms=None (one torch.cdist call would build the "
+                  f"{n * s_cap * 4 / 1e9:.0f} GB matrix) "
+                  f"filter_d2_equal={torch.equal(ds, got[1])}", flush=True)
+            results.append(dict(kernel="assign", shape=(n, s_cap, d, gen), tier=tier,
+                                err=err, ms=times[planned], plain_ms=plain,
+                                bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    saved = fs.SMALL_MAX_D, fs.TILED_MIN_KD
+    for big_n, budget, d, k, gen in EIM_FILTER:
+        _, s_cap, rank = eim_params(big_n, k)
+        n = engine.resolve_block_rows(big_n, d, memory_budget=budget)
+        chunk = plain_chunk(engine, n, s_cap, d)
+        for tier in ("exact", "float"):
+            x = eim_points(P, gen, n, d, tier, seed=5)
+            xt, ct = cuda_t(torch, x), cuda_t(torch, s_buffer(x, s_cap, rng))
+            ds0 = cuda_t(torch, np.floor(rng.random(n) * 5000).astype(np.float32))
+            hm = cuda_t(torch, rng.random(n) < 0.4)
+            got = engine.fused_filter(xt, ct, ds0.clone(), hm, rank=rank, impl="kernel")
+            want = engine.fused_filter(xt, ct, ds0.clone(), hm, rank=rank, impl="ref",
+                                       chunk=chunk)
+            tops = [engine.merge_top_k(engine.top_k_init(rank), t[1], rank)
+                    for t in (got, want)]
+            # #2 on the same pairs; the plain assign's nearest centers
+            # scale the float tier's per-row tolerance
+            d2 = torch.minimum(ds0, engine.assign_nearest(xt, ct, impl="kernel")[1])
+            near = None if tier == "exact" else engine.assign_nearest(
+                xt, ct, impl="ref", memory_budget=PLAIN_TILE_BYTES)[0].long()
+            torch.cuda.synchronize()
+            err = max((got[0] - want[0]).abs().max().item(),
+                      (got[1] - want[1]).abs().max().item())
+            label = f"filter eim n={n} k={s_cap} d={d} rank={rank} {tier}"
+            if tier == "exact":
+                check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                      f"{label}: not bitwise the plain version")
+                check(torch.equal(got[0], d2), f"{label}: #2 d2 differs from #3")
+            else:
+                tol = dist2_tol(xt, ct[near])
+                check(bool(((got[0] - want[0]).abs() <= tol).all()),
+                      f"{label}: ds beyond tolerance ({err})")
+                check(torch.allclose(tops[0], tops[1], rtol=1e-4, atol=1e-4),
+                      f"{label}: merged top beyond rtol 1e-4")
+                alike[d] = alike[d] and torch.equal(got[0], d2)
+            plain = device_ms(torch, lambda: engine.fused_filter(
+                xt, ct, ds0.clone(), hm, rank=rank, impl="ref", chunk=chunk),
+                reps=2, warmup=1)
+            times = {}
+            try:
+                for route in ("small", "tiled", "wide"):
+                    if route == "small" and d > 8:
+                        continue
+                    forced_filter_route(fs, route)
+                    if fs.filter_plan(n, s_cap, d, sm_count(0)).route != getattr(
+                            fs, f"ROUTE_{route.upper()}"):
+                        continue
+                    again = engine.fused_filter(xt, ct, ds0.clone(), hm, rank=rank,
+                                                impl="kernel")
+                    check(torch.equal(again[0], got[0]) and torch.equal(again[1], got[1]),
+                          f"{label}: the {route} kernel differs")
+                    scratch = ds0.clone()
+                    times[route] = device_ms(torch, lambda: engine.fused_filter(
+                        xt, ct, scratch, hm, rank=rank, impl="kernel"),
+                        reps=5, warmup=1)
+            finally:
+                fs.SMALL_MAX_D, fs.TILED_MIN_KD = saved
+                fs.filter_plan.cache_clear()
+            names = {fs.ROUTE_SMALL: "small", fs.ROUTE_TILED: "tiled",
+                     fs.ROUTE_WIDE: "wide"}
+            planned = names[fs.filter_plan(n, s_cap, d, sm_count(0)).route]
+            ntiles = -(-n // engine.ref.FILTER_TILE_ROWS)
+            b_ms, b_by = bound(4 * (n * d + s_cap * d + ntiles * rank) + 9 * n,
+                               n * s_cap * (2 * d + 5) + 2 * d * (n + s_cap))
+            print(f"{label}: ok max_abs_err={err:.3g} planned={planned} "
+                  f"kernel_ms={times[planned]:.5f} " + " ".join(
+                      f"{r}_ms={t:.5f}" for r, t in times.items())
+                  + f" plain_ms={plain:.5f} (chunk={chunk} rows) bound_ms={b_ms:.5f} "
+                  f"({b_by}) assign_d2_equal={torch.equal(got[0], d2)}", flush=True)
+            results.append(dict(kernel="fused_filter", shape=(n, s_cap, d, rank, gen),
+                                tier=tier, err=err, ms=times[planned], plain_ms=plain,
+                                bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    print(f"#2 and #3 round every pair's d2 alike on float inputs at EIM's "
+          f"shapes: {alike}", flush=True)
+    return alike
+
+
+def eim_stats(res, n, k):
+    """The sample's numbers: iterations, |S|, |C|, overflow, sampled, and
+    the §4 cap on |C|."""
+    from repro_torch.core.eim import _sample_cap
+    s = res.sample
+    size_s = int(s.s_mask.sum())
+    return dict(iters=int(s.iters), S=size_s, C=int(s.sample_mask.sum()),
+                overflow=int(s.overflow), sampled=bool(s.sampled),
+                cap=_sample_cap(n, k, EIM_EPS, size_s))
+
+
+def same_eim(a, b) -> bool:
+    """Bitwise the same EIM result: sample, iterations, overflow, centers
+    and radius2."""
+    sa, sb = a.sample, b.sample
+    return (torch_equal(sa.sample_mask, sb.sample_mask)
+            and torch_equal(sa.s_mask, sb.s_mask)
+            and int(sa.iters) == int(sb.iters)
+            and int(sa.overflow) == int(sb.overflow)
+            and bool(sa.sampled) == bool(sb.sampled)
+            and torch_equal(a.centers, b.centers)
+            and a.radius2.item() == b.radius2.item())
+
+
+def same_sample(a, b) -> bool:
+    return (torch_equal(a.sample.sample_mask, b.sample.sample_mask)
+            and torch_equal(a.sample.s_mask, b.sample.s_mask))
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return torch.equal(a.cpu(), b.cpu())
+
+
+def check_eim_float(label, res, r2_plain, st):
+    """What a float run must show: overflow 0, |C| within the §4 cap, and
+    radius2 its own centers' covering radius (recomputed by the plain
+    version, rtol 1e-4)."""
+    check(st["overflow"] == 0, f"{label}: overflow {st['overflow']}")
+    check(st["sampled"] and st["C"] <= st["cap"],
+          f"{label}: |C| = {st['C']} past the §4 cap {st['cap']}")
+    r2 = res.radius2.item()
+    check(np.isfinite(r2) and abs(r2 - r2_plain) <= 1e-4 * abs(r2_plain),
+          f"{label}: radius2 {r2} vs its centers' plain radius2 {r2_plain}")
+
+
+def eim_syncs(kind, iters):
+    """The synchronising calls an eim run makes. Device path: one read of
+    |R| for each evaluation of the loop condition (iterations + 1), and one
+    read of the sample's masks for the compaction; none in the final GON
+    or the radius. Streamed loop: per iteration one wait for the sampler's
+    masks (copied back to pinned memory without a wait) and the filter
+    round's pivot read (its d_s blocks come back on non-blocking copies
+    that the read orders); none in the final GON or the streamed radius."""
+    return iters + 2 if kind == "device" else 2 * iters
+
+
+def streamed_allowance(ex, src, k, c_size):
+    """Device memory a streamed eim run may take beyond what was allocated
+    before it: the ring's residency model at the budget, the S buffer
+    (s_cap·d·4), the tile tops and their merge (twice ceil(rows / 256)·rank
+    f32), a block's ds and H mask (two blocks' live), the ragged block
+    padded to rows, the sampler's int64 words (SAMPLE_ROWS rows, 16 words
+    a row), the final GON's gathered sample padded to a power of two (its
+    points twice while padded, its md) and phase 5's slack."""
+    from repro_torch.core.eim import SAMPLE_ROWS, _compact_cap
+    rows, d = ex.rows_for(src), src.d
+    _, s_cap, rank = eim_params(src.n, k)
+    cap = _compact_cap(c_size, src.n)
+    return ((ex.prefetch + 1) * 4 * rows * (d + 1) + 4 * s_cap * d
+            + 2 * 4 * -(-rows // 256) * rank + 2 * 5 * rows + 4 * rows * d
+            + SAMPLE_ROWS * 8 * 16 + 4 * cap * (2 * d + 1) + PEAK_SLACK)
+
+
+def phase_eim(torch, engine, P, counters, alike):
+    print("== phase 10: EIM (paper §4), impl='auto' against impl='ref' on the "
+          "card; the device path, SimExecutor and HostStreamExecutor", flush=True)
+    from repro_torch.core import (HostStreamExecutor, SimExecutor, eim, mrg)
+    from repro_torch.data.source import HostSource, synthetic_source
+    totals = {name: 0 for name in counters}
+
+    def counted(label, fn, kind, path):
+        t0 = time.perf_counter()
+        res, launches, syncs, blocks, peak = counted_run(torch, fn, counters)
+        wall = (time.perf_counter() - t0) * 1e3
+        report_syncs(syncs)
+        iters = int(res.sample.iters)
+        want = eim_syncs(kind, iters)
+        check(len(syncs) == want, f"{label}: {len(syncs)} synchronising calls, "
+              f"expected {want} ({kind}, {iters} iterations)")
+        for name in path:
+            check(launches[name] > 0, f"{label}: kernel {name} never launched")
+        for name, c in launches.items():
+            totals[name] += c
+        return res, launches, len(syncs), blocks, peak, wall
+
+    # -- 10a: in memory, the device path ---------------------------------
+    for gen, n, d, k in EIM_CONFIGS:
+        x = P.GENERATORS[gen](n, d=d, seed=0)
+        xt = cuda_t(torch, x)
+        _, s_cap, rank = eim_params(n, k)
+        chunk = plain_chunk(engine, n, s_cap, d)
+        label = f"10a eim {gen} n={n} d={d} k={k} device path"
+        eim(xt, k, EIM_KEY)                                   # warm-up
+        res, launches, syncs, _, _, wall = counted(
+            label, lambda: eim(xt, k, EIM_KEY), "device", ("assign", "gon_step"))
+        ref = eim(xt, k, EIM_KEY, impl="ref", chunk=chunk)
+        sim = eim(xt, k, EIM_KEY, executor=SimExecutor(50))
+        st, st_ref = eim_stats(res, n, k), eim_stats(ref, n, k)
+        for lab, r, s in ((label, res, st), (label + " ref", ref, st_ref)):
+            r2_plain = engine.assign_nearest(xt, r.centers, impl="ref",
+                                             chunk=chunk)[1].max().item()
+            check_eim_float(lab, r, r2_plain, s)
+        equal = same_sample(res, ref)
+        if equal:
+            check(torch.equal(res.centers, ref.centers),
+                  f"{label}: equal samples but centers differ from ref")
+        sim_equal = same_eim(res, sim)
+        if alike.get(d):
+            check(sim_equal, f"{label}: SimExecutor(m=50) differs from the device "
+                  "path though #2 and #3 round alike")
+        mrg(xt, k, m=50)
+        m_walls = wall_ms(torch, lambda: mrg(xt, k, m=50))
+        m_r2 = mrg(xt, k, m=50).radius2.item()
+        r2 = res.radius2.item()
+        print(f"{label}: ok iterations={st['iters']} |S|={st['S']} |C|={st['C']} "
+              f"cap={st['cap']} overflow={st['overflow']} s_cap={s_cap} rank={rank} "
+              f"radius2={r2!r} ref_radius2={ref.radius2.item()!r} "
+              f"ref_iterations={st_ref['iters']} ref_|C|={st_ref['C']} "
+              f"sample_equal_to_ref={equal} sim_m50_bitwise={sim_equal} "
+              f"wall_ms={wall:.3f} launches={launches} sync_warnings={syncs} "
+              f"mrg_radius2={m_r2!r} mrg_wall_ms={[round(w, 3) for w in m_walls]} "
+              f"eim_over_mrg_radius={(r2 / m_r2) ** 0.5:.6f}", flush=True)
+        del xt, ref, sim
+
+    # -- 10b: out of core, HostStreamExecutor --------------------------------
+    kdd = HostSource(kdd_host(P))
+    # The unif generator runs at compact_threshold=0: a compacted view of a
+    # generator costs one block_fn call per run of consecutive surviving
+    # rows (~40 % of 1e7 rows survive the first iteration, scattered), far
+    # more than the pass it saves; the sample does not depend on the knob.
+    runs = [("10b eim unif n=1e7 d=2 synthetic, 64 MiB, compact_threshold=0",
+             synthetic_source("unif", 10_000_000, d=2, seed=0), 64 * MiB, 0.0),
+            ("10b eim kddlike n=4e6 d=38 host, 256 MiB, compact_threshold=0.5",
+             kdd, 256 * MiB, 0.5)]
+    for label, src, budget, ct in runs:
+        k = 25
+        ex = HostStreamExecutor(memory_budget=budget)
+        rows = ex.rows_for(src)
+        _, s_cap, rank = eim_params(src.n, k)
+        chunk = plain_chunk(engine, rows, s_cap, src.d)
+        res, launches, syncs, blocks, peak, wall = counted(
+            label, lambda: eim(src, k, EIM_KEY, executor=ex, compact_threshold=ct),
+            "streamed", ("fused_filter", "gon_step"))
+        st = eim_stats(res, src.n, k)
+        allowed = streamed_allowance(ex, src, k, st["C"])
+        check(peak <= allowed, f"{label}: peak device memory {peak} bytes above "
+              f"the allowed {allowed}")
+        ref = eim(src, k, EIM_KEY, executor=ex, compact_threshold=ct, impl="ref",
+                  chunk=chunk)
+        st_ref = eim_stats(ref, src.n, k)
+        for lab, r, s in ((label, res, st), (label + " ref", ref, st_ref)):
+            check_eim_float(lab, r, ex.radius2(src, r.centers, impl="ref",
+                                               chunk=chunk).item(), s)
+        equal = same_sample(res, ref)
+        if equal:
+            check(torch.equal(res.centers, ref.centers),
+                  f"{label}: equal samples but centers differ from ref")
+        # the device path on the same points, on the kernels
+        x = src.materialize("cuda")
+        dev = eim(x, k, EIM_KEY)
+        dev_equal = same_eim(dev, res)
+        if alike.get(src.d):
+            check(dev_equal, f"{label}: the device path differs though #2 and #3 "
+                  "round alike")
+        del x
+        print(f"{label}: ok super-shard rows={rows} iterations={st['iters']} "
+              f"|S|={st['S']} |C|={st['C']} cap={st['cap']} overflow={st['overflow']} "
+              f"s_cap={s_cap} rank={rank} radius2={res.radius2.item()!r} "
+              f"ref_radius2={ref.radius2.item()!r} ref_iterations={st_ref['iters']} "
+              f"sample_equal_to_ref={equal} device_path_bitwise={dev_equal} "
+              f"wall_ms={wall:.3f} launches={launches} sync_warnings={syncs} "
+              f"blocks_streamed={blocks} peak_MiB={peak / MiB:.2f} "
+              f"allowed_MiB={allowed / MiB:.2f} budget_MiB={budget / MiB}", flush=True)
+
+    # -- 10c: the exact tier, every form bitwise -----------------------------
+    rng = np.random.default_rng(7)
+    for gen, n, d, k in EIM_EXACT:
+        x = (exact_points(rng, (n, d)) if gen == "exact"
+             else eim_points(P, gen, n, d, "exact"))
+        xt = cuda_t(torch, x)
+        _, s_cap, _ = eim_params(n, k)
+        chunk = plain_chunk(engine, n, s_cap, d)
+        ex = HostStreamExecutor(memory_budget=16 * MiB if d == 2 else 64 * MiB)
+        forms = {"device kernel": eim(xt, k, EIM_KEY),
+                 "device plain": eim(xt, k, EIM_KEY, impl="ref", chunk=chunk),
+                 "SimExecutor(m=50)": eim(xt, k, EIM_KEY, executor=SimExecutor(50)),
+                 "HostStreamExecutor": eim(HostSource(x), k, EIM_KEY, executor=ex)}
+        if d > 2:
+            forms["HostStreamExecutor plain"] = eim(
+                HostSource(x), k, EIM_KEY, executor=ex, impl="ref",
+                chunk=plain_chunk(engine, ex.rows_for(HostSource(x)), s_cap, d))
+        first = forms["device kernel"]
+        for name, r in forms.items():
+            check(same_eim(first, r), f"10c eim {gen} n={n} d={d}: {name} differs "
+                  "from the device path on the kernels")
+        st = eim_stats(first, n, k)
+        check(st["overflow"] == 0 and st["C"] <= st["cap"],
+              f"10c eim {gen}: overflow {st['overflow']}, |C| {st['C']}")
+        print(f"10c eim {gen} exact-tier n={n} d={d} k={k}: {sorted(forms)} bitwise "
+              f"(sample_mask, s_mask, iterations, overflow, sampled, centers, "
+              f"radius2) iterations={st['iters']} |S|={st['S']} |C|={st['C']} "
+              f"radius2={first.radius2.item()!r} host_rows={ex.rows_for(HostSource(x))}",
+              flush=True)
+        del xt, forms, first
+    return totals
+
+
+def phase_eim_profile(torch, P):
+    print("== phase 10d: profiles of one eim run of each form (device path "
+          "unif n=1e6 k=25; streamed kddlike n=4e6 d=38 at 256 MiB, k=25)",
+          flush=True)
+    from repro_torch.core import HostStreamExecutor, eim
+    from repro_torch.data.source import HostSource
+    from repro_torch.kernels import engine
+    xt = cuda_t(torch, P.unif(1_000_000, d=2, seed=0))
+    kdd = HostSource(kdd_host(P))
+    ex = HostStreamExecutor(memory_budget=256 * MiB)
+    runs = [("device path unif n=1e6 k=25", lambda: eim(xt, 25, EIM_KEY)),
+            ("streamed kddlike n=4e6 k=25", lambda: eim(kdd, 25, EIM_KEY,
+                                                        executor=ex))]
+    for label, fn in runs:
+        fn()
+        with HostClock(engine, ("bernoulli_rows", "bernoulli_rows_block",
+                                "bernoulli_rows_at_block")) as clock:
+            prof = device_profile(torch, fn)
+        if prof is None:
+            print("profile: no device time recorded (not measured)", flush=True)
+            return
+        wall, busy, nk, copy, nc, by_name = prof
+        print(f"profile {label}: wall_ms={wall:.3f} (profiler on) "
+              f"kernel_busy_ms={busy:.3f} kernels={nk} copy_ms={copy:.3f} "
+              f"copies={nc} idle_share_of_wall={1 - busy / wall:.4f} "
+              f"sampler_host_ms={sum(clock.ms.values()):.3f} (enqueueing the "
+              f"draws)", flush=True)
+        for name, (ms, count) in sorted(by_name.items(), key=lambda r: -r[1][0])[:8]:
+            print(f"  {ms:9.4f} ms  {count:6d}x  {name[:90]}", flush=True)
+
+
 def digest(*tensors) -> str:
     """SHA-1 of the tensors' bytes, in order: equal digests, bitwise equal
     results."""
@@ -2315,6 +2804,7 @@ def main() -> int:
     phase_pairwise(torch, engine, rng, results)
     pairwise_routing(torch, engine)
     pairwise_edge_cases(torch, engine, rng)
+    alike = phase_eim_shapes(torch, engine, P, rng, results)
     phase_ring(torch, P)
     counters = {"gon_step": fused_min_argmax_cuda, "assign": assign_nearest_cuda}
     totals = phase_mrg(torch, mrg, counters, P)
@@ -2332,6 +2822,8 @@ def main() -> int:
     sketch_totals = phase_sketch(torch, P, counters)
     phase_kz_profile(torch, P, rng)
     phase_sketch_profile(torch, P)
+    eim_totals = phase_eim(torch, engine, P, counters, alike)
+    phase_eim_profile(torch, P)
 
     # times at each path's first shape on float inputs — in memory: GON step
     # m=50, per=20000, d=2; assign n=1e6, k=25, d=2 (paper Fig. 4); streamed:
@@ -2341,7 +2833,7 @@ def main() -> int:
     # the batched assign at m=50, per=20000, t=125, d=2, the sums entry at
     # phase 9's round 1 (1 x 573,580 rows, t=125, d=38), pairwise at the
     # sketch's (101, 101, 38) bootstrap in f32. Launches: every launch of the
-    # kernel's wrapper in the counted runs of phases 3, 5, 7 and 8, each
+    # kernel's wrapper in the counted runs of phases 3, 5, 7, 8 and 10, each
     # counted once, by the wrapper that made it (the streamed and batched
     # assign's cluster sums take the sums entry: assign_sums, not
     # fused_assign or assign_batched). max_abs_err over every check of the
@@ -2375,7 +2867,8 @@ def main() -> int:
         mine = [r for r in results if r["kernel"] == name]
         main = next(r for r in mine if r["shape"] == shape and r["tier"] == "float")
         launches = sum(t.get(name, 0) for t in (totals, stream_totals,
-                                                weighted_totals, sketch_totals))
+                                                weighted_totals, sketch_totals,
+                                                eim_totals))
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": max(r["err"] for r in mine),

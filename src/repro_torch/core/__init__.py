@@ -1,6 +1,6 @@
 """The paper's parallel k-center algorithms in PyTorch (port of
 ``repro.core``: MRG in memory and out of core, coreset selection, the
-weighted and outlier objectives, and the streaming sketch).
+weighted and outlier objectives, the streaming sketch, and EIM).
 
   gonzalez.py — GON, batched over machine blocks; streamed over a source
   executor.py — SimExecutor (m simulated machines on one device) and
@@ -11,8 +11,11 @@ weighted and outlier objectives, and the streaming sketch).
   outliers.py — (k,z)-center with outliers (kz_center)
   streaming.py — the doubling sketch over a stream (stream_update)
   metrics.py  — covering radius, assignment, brute-force OPT (tests)
+  eim.py      — EIM, paper §4 (eim / eim_sample): the device path and the
+                streamed loop over an executor's filter rounds
 """
 from .coreset import Coreset, select_coreset  # noqa: F401
+from .eim import EIMResult, EIMSample, eim, eim_sample  # noqa: F401
 from .executor import (Executor, HostStreamExecutor, Objective,  # noqa: F401
                        SimExecutor, weighted_gon_block_fn)
 from .gonzalez import GonzalezResult, covering_radius, gonzalez  # noqa: F401

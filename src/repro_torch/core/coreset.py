@@ -48,8 +48,10 @@ def select_coreset(embeddings, k: int, *, mesh=None,
     the JAX package. The weights' sums on the card add in no fixed order:
     bitwise for integer weights whose sums stay below 2^24.
 
-    ``device=None`` means the executor's device, else ``"cuda"``. ``mesh``
-    (``MeshExecutor``) and ``chunk`` are not ported yet and raise.
+    ``chunk`` (rows) bounds every distance pass's plain-route tiles, the
+    reverse passes' included. ``device=None`` means the executor's device,
+    else ``"cuda"``. ``mesh`` (``MeshExecutor``) is not ported yet and
+    raises.
 
     >>> import numpy as np
     >>> emb = np.random.default_rng(0).normal(size=(100, 8)).astype(np.float32)
@@ -61,8 +63,6 @@ def select_coreset(embeddings, k: int, *, mesh=None,
     """
     if mesh is not None:
         raise NotImplementedError("mesh= (MeshExecutor) is not ported yet")
-    if chunk is not None:
-        raise NotImplementedError("chunk (row-chunked passes) is not ported yet")
     if executor is not None:
         if device is not None:
             raise ValueError("pass device= to the executor, not to "
@@ -82,9 +82,9 @@ def select_coreset(embeddings, k: int, *, mesh=None,
         block_rows = getattr(executor, "block_rows", None)
         memory_budget = getattr(executor, "memory_budget", None)
     if executor is not None:
-        res = mrg(src, k, executor=executor, impl=impl)
+        res = mrg(src, k, executor=executor, impl=impl, chunk=chunk)
     else:
-        res = gonzalez(src, k, impl=impl, block_rows=block_rows,
+        res = gonzalez(src, k, impl=impl, chunk=chunk, block_rows=block_rows,
                        memory_budget=memory_budget, device=dev)
     centers, r2 = res.centers, res.radius2
     # int32 counts are exact (n < 2^31); a weighted source's f32 weight sums
@@ -93,15 +93,17 @@ def select_coreset(embeddings, k: int, *, mesh=None,
     if streamed:
         weighted = has_weights(src)
         sums = ops.assign_sums_source(
-            src, centers, impl=impl, block_rows=block_rows,
+            src, centers, impl=impl, chunk=chunk, block_rows=block_rows,
             memory_budget=memory_budget, weighted=weighted, device=dev)
         cidx = ops.argmin_dist2_over_source(
-            src, centers, impl=impl, block_rows=block_rows,
+            src, centers, impl=impl, chunk=chunk, block_rows=block_rows,
             memory_budget=memory_budget, device=dev)
     else:
         emb = as_points(src, dev)
         sums = ops.assign_sums(emb, centers,
                                torch.zeros((k,), dtype=torch.int32,
-                                           device=dev), impl=impl)
-        cidx = ops.argmin_dist2_over_rows(emb, centers, impl=impl)
+                                           device=dev), impl=impl,
+                               chunk=chunk)
+        cidx = ops.argmin_dist2_over_rows(emb, centers, impl=impl,
+                                          chunk=chunk)
     return Coreset(cidx, centers, sums.to(torch.float32), r2)

@@ -20,22 +20,34 @@ Their interface is the JAX package's:
     reduction carrying per-cluster weights;
   * ``radius2(source, centers)`` — the squared covering radius over all
     points, a streamed fold (``SimExecutor``: one in-memory pass);
-  * ``mrg(source, k)`` — the three in order.
+  * ``mrg(source, k)`` — the three in order;
+  * ``run_filter_round(source, s_new, d_s, h_mask, rank)`` — one iteration
+    of EIM's Rounds 2-3 (paper §4, Algorithm 2): update the host-resident
+    ``d(x, S)`` against the newly sampled centers and reduce Select's
+    pivot (the ``rank``-th largest ``d(x, S)`` over H, Algorithm 3) in the
+    same pass. ``HostStreamExecutor`` folds it over super-shards,
+    ``SimExecutor`` over its machine blocks (one launch of the filter for
+    all machines on the card); both give bitwise the same ``d_s`` and
+    pivot, as top-k values do not depend on the blocking.
 
 An ``Objective`` generalises the rounds: ``weighted`` runs the weighted
 reducer (``weighted_gon_block_fn``: GON, then each row's weight summed onto
 its nearest center) and the weighted combine, so the k centers arrive with
 their cluster weights; ``outliers=z`` scores ``radius2`` as the top-(z+1)
-fold. Nothing here reads a tensor back to the host: the ``combine`` loops
-read only shapes.
+fold. ``chunk`` bounds every distance pass's plain-route tiles
+(``engine.resolve_chunk``). Outside the filter rounds nothing here reads a
+tensor back to the host: the ``combine`` loops read only shapes; a filter
+round reads its pivot, once.
 """
 from __future__ import annotations
 
 import functools
 import warnings
+import weakref
 from dataclasses import dataclass
 from typing import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.data.source import as_source, has_weights, weights_of
@@ -89,17 +101,59 @@ def _is_plain(objective) -> bool:
     return not objective.weighted and objective.outliers == 0
 
 
+_NEG = np.float32(ref.NEG)   # Select's empty-slot sentinel
+_BIG = np.float32(ref.BIG)   # d(x, S) of a row no center has reached
+
+
+def _eim_pivot_block(d_blk, h_blk, top, *, rank: int):
+    """Pivot-only block step of a zero-sample iteration: the distance state
+    stays untouched (the device path's ``any(s_valid)`` gate)."""
+    return engine.merge_top_k(top, torch.where(h_blk, d_blk, ref.NEG), rank)
+
+
+def _pivot_from_top(top: torch.Tensor, rank: int) -> np.float32:
+    """Algorithm 3's pivot from a merged descending top-``rank``: the
+    rank-th largest d(·, S)^2, or -1.0 where H held fewer than ``rank``
+    points (an empty slot survived the merge), so that no row is removed
+    by distance: the device path's ``where(pivot <= _NEG / 2, -1, pivot)``.
+    The read of the round: it also orders the copies queued before it."""
+    pivot = np.float32(top[rank - 1].item())
+    if pivot <= _NEG / np.float32(2):
+        return np.float32(-1.0)
+    return pivot
+
+
+class _HostCopy:
+    """Per-row f32 results on their way back to the host: each block's
+    rows copied into one buffer (pinned, by non-blocking copies, on a CUDA
+    device), read after the round's synchronising pivot read."""
+
+    def __init__(self, n: int, dev: torch.device):
+        self.buf = torch.empty((n,), dtype=torch.float32,
+                               pin_memory=dev.type == "cuda")
+
+    def put(self, off: int, t: torch.Tensor) -> None:
+        self.buf[off:off + t.shape[0]].copy_(t, non_blocking=True)
+
+    def into(self, out: np.ndarray) -> np.ndarray:
+        out[:] = self.buf.numpy()
+        return out
+
+
 @functools.lru_cache(maxsize=None)
-def gon_block_fn(k: int, impl: str = "auto") -> BlockFn:
+def gon_block_fn(k: int, impl: str = "auto",
+                 chunk: int | None = None) -> BlockFn:
     """The per-machine reducer: GON restricted to each (masked) block,
     batched over the leading machine axis (``mask=None``: every row)."""
     def fn(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        return _gonzalez_device(points, k, mask=mask, impl=impl).centers
+        return _gonzalez_device(points, k, mask=mask, impl=impl,
+                                chunk=chunk).centers
     return fn
 
 
 @functools.lru_cache(maxsize=None)
-def weighted_gon_block_fn(k: int, impl: str = "auto", *,
+def weighted_gon_block_fn(k: int, impl: str = "auto",
+                          chunk: int | None = None, *,
                           mask_zero: bool = True) -> WeightedBlockFn:
     """The weighted per-machine reducer, batched over the machine axis:
     masked GON, then each selected row's weight summed onto its nearest
@@ -120,11 +174,13 @@ def weighted_gon_block_fn(k: int, impl: str = "auto", *,
             sel = w > 0 if mask is None else mask & (w > 0)
         else:
             sel = mask
-        centers = _gonzalez_device(points, k, mask=sel, impl=impl).centers
+        centers = _gonzalez_device(points, k, mask=sel, impl=impl,
+                                   chunk=chunk).centers
         wsel = w if sel is None else torch.where(sel, w, 0.0)
         cw = torch.zeros((points.shape[0], k), dtype=torch.float32,
                          device=points.device)
-        return centers, ops.assign_sums(points, centers, cw, wsel, impl=impl)
+        return centers, ops.assign_sums(points, centers, cw, wsel, impl=impl,
+                                        chunk=chunk)
     return fn
 
 
@@ -160,10 +216,11 @@ def _run_round_w(points_blocked: torch.Tensor, mask_blocked: torch.Tensor,
 
 
 def _mrg_round(points_blocked: torch.Tensor, mask_blocked: torch.Tensor,
-               k: int, m: int, impl: str):
+               k: int, m: int, impl: str, chunk: int | None = None):
     """One round of per-machine GON (the JAX package's round entry)."""
     del m  # implied by the blocking
-    return _run_round(points_blocked, mask_blocked, gon_block_fn(k, impl))
+    return _run_round(points_blocked, mask_blocked,
+                      gon_block_fn(k, impl, chunk))
 
 
 _DIVERGED_MSG = ("combine diverged (k too close to capacity; "
@@ -206,7 +263,8 @@ class Executor:
         return 2 * k
 
     def combine(self, centers: torch.Tensor, valid: torch.Tensor, k: int,
-                capacity: int, *, impl: str = "auto"):
+                capacity: int, *, impl: str = "auto",
+                chunk: int | None = None):
         """Rounds 2+: reduce the center union to k centers.
 
         While the union exceeds ``capacity``, re-block and run another GON
@@ -224,14 +282,16 @@ class Executor:
             blocked, bmask = _block(centers, m2)
             vpad, _ = engine._pad_rows(valid, bmask.numel(), False)
             bmask = bmask & vpad.reshape(bmask.shape)
-            centers, valid = _mrg_round(blocked, bmask, k, m2, impl)
+            centers, valid = _mrg_round(blocked, bmask, k, m2, impl, chunk)
             extra += 1
-        final = _gonzalez_device(centers[None], k, mask=valid[None], impl=impl)
+        final = _gonzalez_device(centers[None], k, mask=valid[None], impl=impl,
+                                 chunk=chunk)
         return final.centers[0], extra
 
     def combine_weighted(self, centers: torch.Tensor, valid: torch.Tensor,
                          weights: torch.Tensor, k: int, capacity: int, *,
-                         impl: str = "auto", final_gon: bool = True):
+                         impl: str = "auto", chunk: int | None = None,
+                         final_gon: bool = True):
         """Lemma-3 reduction carrying cluster weights: every level's output
         stays a weighted instance.
 
@@ -248,7 +308,7 @@ class Executor:
         GON, ``centers`` is (k, d) and ``valid`` all True."""
         check_combine_capacity(k, capacity)
         w = weights.to(torch.float32)
-        fn = weighted_gon_block_fn(k, impl, mask_zero=False)
+        fn = weighted_gon_block_fn(k, impl, chunk, mask_zero=False)
         extra = 0
         while centers.shape[0] > capacity and centers.shape[0] > k:
             m2 = -(-centers.shape[0] // capacity)
@@ -264,15 +324,15 @@ class Executor:
         if not final_gon:
             return centers, w, valid, extra
         final = _gonzalez_device(centers[None], k, mask=valid[None],
-                                 impl=impl).centers[0]
+                                 impl=impl, chunk=chunk).centers[0]
         w_out = torch.zeros((k,), dtype=torch.float32, device=w.device)
         ops.assign_sums(centers, final, w_out, torch.where(valid, w, 0.0),
-                        impl=impl)
+                        impl=impl, chunk=chunk)
         return (final, w_out,
                 torch.ones((k,), dtype=torch.bool, device=w.device), extra)
 
     def radius2(self, source, centers: torch.Tensor, *, impl: str = "auto",
-                objective=None) -> torch.Tensor:
+                chunk: int | None = None, objective=None) -> torch.Tensor:
         """Squared covering radius over ALL source points, streamed
         (``engine.fold_min_d2``). Returns ``max(min_d2)`` itself: a
         ``sqrt`` → square round trip is lossy in f32, and every executor
@@ -282,13 +342,40 @@ class Executor:
         if not _is_plain(objective):
             top = engine.fold_top_k_min_d2(
                 source, centers, objective.outliers + 1, impl=impl,
-                weighted=objective.weighted, device=self.device)
+                chunk=chunk, weighted=objective.weighted, device=self.device)
             return torch.clamp_min(top[objective.outliers], 0.0)
-        return engine.fold_min_d2(source, centers, impl=impl,
+        return engine.fold_min_d2(source, centers, impl=impl, chunk=chunk,
                                   device=self.device)
 
+    def run_filter_round(self, source, s_new, d_s: np.ndarray,
+                         h_mask: np.ndarray, rank: int, *,
+                         impl: str = "auto", chunk: int | None = None):
+        """One EIM iteration's Rounds 2-3 over this executor's machines.
+
+        ``s_new`` is the iteration's newly sampled centers ``(m_new, d)``
+        (host numpy, padded to a fixed capacity with ``1e18`` rows, which
+        never win the distance min), or ``None``/empty for an iteration
+        that sampled nothing: the distances then stay untouched, like the
+        device path's ``any(s_valid)`` gate. ``d_s (n,) f32`` and ``h_mask
+        (n,) bool`` are the host-resident per-row state of ``source`` (a
+        compacted view's slices). Updates ``d_s`` in place to ``min(d_s,
+        d(x, S_new)^2)`` and reduces Select's pivot, the ``rank``-th
+        largest updated ``d_s`` over H, in the same pass.
+
+        Returns ``(d_s, pivot)``, ``pivot`` an ``np.float32`` (-1.0 where
+        H held fewer than ``rank`` rows)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement EIM's "
+            "run_filter_round; use HostStreamExecutor (streamed) or "
+            "SimExecutor (simulated machines)")
+
+    def end_filter_rounds(self, source) -> None:
+        """Called when an EIM run's loop is done with ``source``: the hook
+        to release per-source state kept across ``run_filter_round``
+        calls. Nothing to release by default."""
+
     def mrg(self, source, k: int, *, capacity: int | None = None,
-            impl: str = "auto", objective=None):
+            impl: str = "auto", chunk: int | None = None, objective=None):
         """Full MRG on this executor over ``source`` (anything
         ``as_source`` takes). Returns ``(centers (k, d), radius2 (),
         rounds)``; with a weighted ``objective``, ``(centers, radius2,
@@ -304,14 +391,18 @@ class Executor:
         check_combine_capacity(k, capacity, warn=False)
         if not plain and objective.weighted:
             centers, valid, cw = self.run_blocks(
-                weighted_gon_block_fn(k, impl), source, objective=objective)
+                weighted_gon_block_fn(k, impl, chunk), source,
+                objective=objective)
             centers, w, _, extra = self.combine_weighted(
-                centers, valid, cw, k, capacity, impl=impl)
-            r2 = self.radius2(source, centers, impl=impl, objective=objective)
+                centers, valid, cw, k, capacity, impl=impl, chunk=chunk)
+            r2 = self.radius2(source, centers, impl=impl, chunk=chunk,
+                              objective=objective)
             return centers, r2, 2 + extra, w
-        centers, valid = self.run_blocks(gon_block_fn(k, impl), source)
-        centers, extra = self.combine(centers, valid, k, capacity, impl=impl)
-        r2 = self.radius2(source, centers, impl=impl, objective=objective)
+        centers, valid = self.run_blocks(gon_block_fn(k, impl, chunk), source)
+        centers, extra = self.combine(centers, valid, k, capacity, impl=impl,
+                                      chunk=chunk)
+        r2 = self.radius2(source, centers, impl=impl, chunk=chunk,
+                          objective=objective)
         return centers, r2, 2 + extra
 
 
@@ -328,6 +419,7 @@ class SimExecutor(Executor):
             raise ValueError(f"need at least one machine, got m={m}")
         self.m = m
         self.device = resolve_device(device)
+        self._eim_blocked_cache = None
 
     def run_blocks(self, fn, source, *, objective=None):
         blocked, mask = _block(as_points(source, self.device), self.m)
@@ -349,11 +441,12 @@ class SimExecutor(Executor):
     def default_capacity(self, source, k: int) -> int:
         return max(-(-source.n // self.m), 2 * k)
 
-    def radius2(self, source, centers, *, impl="auto", objective=None):
+    def radius2(self, source, centers, *, impl="auto", chunk=None,
+                objective=None):
         # One pass of the nearest-center kernel over all n points; returns
         # the squared max directly (a sqrt -> square round trip is lossy).
         _, d2 = ops.assign_nearest(as_points(source, self.device), centers,
-                                   impl=impl)
+                                   impl=impl, chunk=chunk)
         if _is_plain(objective):
             return d2.max()
         # the objective changes only the reduction: the top-1 of a multiset
@@ -363,6 +456,60 @@ class SimExecutor(Executor):
         r = objective.outliers + 1
         top = engine.merge_top_k(engine.top_k_init(r, self.device), d2, r)
         return torch.clamp_min(top[r - 1], 0.0)
+
+    def _blocked_for(self, source):
+        """``(n, points blocked (m, per, d))`` of ``source`` on the device,
+        made once a source: EIM calls the filter round every iteration with
+        the same source. Cached by a weak reference, so another source
+        object never meets a stale copy, and dropped by
+        ``end_filter_rounds``; a source that takes no weak reference is not
+        cached."""
+        cache = self._eim_blocked_cache
+        if cache is not None and cache[0]() is source:
+            return cache[1]
+        x = as_points(source, self.device)
+        blocked, _ = _block(x, self.m)
+        try:
+            self._eim_blocked_cache = (weakref.ref(source),
+                                       (x.shape[0], blocked))
+        except TypeError:
+            pass
+        return x.shape[0], blocked
+
+    def end_filter_rounds(self, source) -> None:
+        self._eim_blocked_cache = None
+
+    def run_filter_round(self, source, s_new, d_s, h_mask, rank, *,
+                         impl="auto", chunk=None):
+        """EIM's round on the m simulated machines: each machine updates its
+        rows' ``d(x, S)`` against ``S_new`` and takes its own top-k, and the
+        merge of those tops is the simulated shuffle. The machine axis is
+        flattened into one ``engine.eim_filter_block`` over all blocks (one
+        filter launch on the kernel route), as the JAX package's Pallas
+        branch does: a row's update does not depend on its machine, and
+        top-k values do not depend on the blocking. Padded rows carry
+        ``d = 3.4e38`` and ``H = False``."""
+        n, blocked = self._blocked_for(source)              # (m, per, d)
+        m, per = blocked.shape[0], blocked.shape[1]
+        dev = self.device
+        d_np = np.full((m * per,), _BIG, np.float32)
+        d_np[:n] = d_s
+        h_np = np.zeros((m * per,), bool)
+        h_np[:n] = h_mask
+        d_b, h_b = upload(d_np, dev), upload(h_np, dev)
+        top = engine.top_k_init(rank, dev)
+        if s_new is None or len(s_new) == 0:
+            top = _eim_pivot_block(d_b, h_b, top, rank=rank)
+            return d_s, _pivot_from_top(top, rank)
+        c = upload(np.asarray(s_new, np.float32), dev)
+        d_b, top = engine.eim_filter_block(blocked.view(m * per, -1), c, d_b,
+                                           h_b, top, rank=rank, impl=impl,
+                                           chunk=chunk)
+        back = _HostCopy(n, dev)
+        back.put(0, d_b[:n])
+        pivot = _pivot_from_top(top, rank)
+        back.into(d_s)
+        return d_s, pivot
 
 
 class HostStreamExecutor(Executor):
@@ -426,13 +573,56 @@ class HostStreamExecutor(Executor):
     def default_capacity(self, source, k: int) -> int:
         return max(self.rows_for(source), 2 * k)
 
-    def radius2(self, source, centers, *, impl="auto", objective=None):
+    def radius2(self, source, centers, *, impl="auto", chunk=None,
+                objective=None):
         if not _is_plain(objective):
             top = engine.fold_top_k_min_d2(
                 source, centers, objective.outliers + 1, impl=impl,
-                block_rows=self.rows_for(source), prefetch=self.prefetch,
-                weighted=objective.weighted, device=self.device)
+                chunk=chunk, block_rows=self.rows_for(source),
+                prefetch=self.prefetch, weighted=objective.weighted,
+                device=self.device)
             return torch.clamp_min(top[objective.outliers], 0.0)
-        return engine.fold_min_d2(source, centers, impl=impl,
+        return engine.fold_min_d2(source, centers, impl=impl, chunk=chunk,
                                   block_rows=self.rows_for(source),
                                   prefetch=self.prefetch, device=self.device)
+
+    def run_filter_round(self, source, s_new, d_s, h_mask, rank, *,
+                         impl="auto", chunk=None):
+        """EIM's Rounds 2-3 as one out-of-core fold: each super-shard's
+        ``d(x, S_new)`` update and its share of Select's top-k happen while
+        the shard is on the device (``engine.eim_filter_block``); only the
+        shard ring, ``S_new`` and the (rank,) running top-k are there. The
+        per-row state stays on the host: each block's ``d_s`` and ``h_mask``
+        go up through pinned memory and its updated ``d_s`` comes back by a
+        non-blocking copy, which the pivot read, the round's one
+        synchronising call, orders. Every block is padded to ``rows``
+        (padded lanes: ``d = 3.4e38``, ``H = False``), so every launch of a
+        round has one shape."""
+        rows = self.rows_for(source)
+        dev = self.device
+        have_s = s_new is not None and len(s_new) > 0
+        c = upload(np.asarray(s_new, np.float32), dev) if have_s else None
+        back = _HostCopy(source.n, dev) if have_s else None
+        top = engine.top_k_init(rank, dev)
+        off = 0
+        for blk in self._blocks(source, rows):
+            nb = blk.shape[0]
+            d_np = np.full((rows,), _BIG, np.float32)
+            d_np[:nb] = d_s[off:off + nb]
+            h_np = np.zeros((rows,), bool)
+            h_np[:nb] = h_mask[off:off + nb]
+            if nb < rows:
+                blk = engine._pad_rows(blk, rows, 0.0)[0]
+            d_blk, h_blk = upload(d_np, dev), upload(h_np, dev)
+            if have_s:
+                d_blk, top = engine.eim_filter_block(
+                    blk, c, d_blk, h_blk, top, rank=rank, impl=impl,
+                    chunk=chunk)
+                back.put(off, d_blk[:nb])
+            else:
+                top = _eim_pivot_block(d_blk, h_blk, top, rank=rank)
+            off += nb
+        pivot = _pivot_from_top(top, rank)
+        if have_s:
+            back.into(d_s)
+        return d_s, pivot

@@ -56,8 +56,9 @@ def gonzalez(points, k: int, *, mask=None, first: int = 0,
     the remaining slots repeat covered points. ``radius2`` is the exact
     squared fold ``max(min_d2)``.
 
-    ``device=None`` means ``"cuda"``; ``chunk`` (row-chunked passes) is not
-    ported yet and raises.
+    ``device=None`` means ``"cuda"``. ``chunk`` (rows) streams each pass's
+    plain route in row chunks (``engine.fused_min_argmax``); the centers
+    do not change. On the kernel route it changes nothing.
 
     >>> import numpy as np
     >>> x = np.asarray([[0, 0], [1, 0], [10, 0], [10, 1]], np.float32)
@@ -67,24 +68,24 @@ def gonzalez(points, k: int, *, mask=None, first: int = 0,
     >>> float(res.radius2)
     1.0
     """
-    if chunk is not None:
-        raise NotImplementedError("chunk (row-chunked passes) is not ported yet")
     dev = resolve_device(device)
     if is_source(points) and not isinstance(points, ArraySource):
         if mask is not None:
             raise ValueError("mask is not supported for streamed PointSources")
         return _gonzalez_source(points, k, first=int(first), impl=impl,
-                                block_rows=block_rows,
+                                chunk=chunk, block_rows=block_rows,
                                 memory_budget=memory_budget, device=dev)
     x = as_points(points, dev)
     if mask is not None:
         mask = torch.as_tensor(mask, device=dev).to(torch.bool)[None]
-    res = _gonzalez_device(x[None], k, mask=mask, first=first, impl=impl)
+    res = _gonzalez_device(x[None], k, mask=mask, first=first, impl=impl,
+                           chunk=chunk)
     return GonzalezResult(*(t[0] for t in res))
 
 
 def _gonzalez_device(points: torch.Tensor, k: int, *, mask=None,
-                     first: int = 0, impl: str = "auto") -> GonzalezResult:
+                     first: int = 0, impl: str = "auto",
+                     chunk: int | None = None) -> GonzalezResult:
     """Batched GON over machine blocks ``points (m, per, d)`` with an
     optional ``mask (m, per)``. Returns a ``GonzalezResult`` whose fields
     carry the machine axis in front: ``centers (m, k, d)``, ``indices
@@ -121,7 +122,8 @@ def _gonzalez_device(points: torch.Tensor, k: int, *, mask=None,
         # picks next; step k - 1's slot k is past the end and not written
         md, far_v, _ = ops.fused_min_argmax(points, centers[:, i], md, impl=impl,
                                             ws=ws, centers=centers,
-                                            indices=indices, slot=i + 1)
+                                            indices=indices, slot=i + 1,
+                                            chunk=chunk)
     # far_v = max(md): the covering radius, or _NEG on a machine with no
     # valid row; masked-out points carry _NEG, clamped to 0 in the
     # covered-distance vector we hand back.
@@ -145,7 +147,7 @@ def _source_row(source, idx: int, rows: int) -> np.ndarray:
 
 
 def _gonzalez_source(source, k: int, *, first: int = 0, impl: str = "auto",
-                     block_rows: int | None = None,
+                     chunk: int | None = None, block_rows: int | None = None,
                      memory_budget: int | None = None,
                      device=None) -> GonzalezResult:
     """Out-of-core GON: k streamed passes over a point source.
@@ -193,7 +195,8 @@ def _gonzalez_source(source, k: int, *, first: int = 0, impl: str = "auto",
             mdb[0].copy_(md_host[off:off + nb], non_blocking=True)
             ops.fused_min_argmax(blk[None], centers[:, i], mdb, impl=impl, ws=ws,
                                  centers=centers, indices=indices, slot=i + 1,
-                                 carry=carry, off=off, reset=off == 0)
+                                 carry=carry, off=off, reset=off == 0,
+                                 chunk=chunk)
             md_host[off:off + nb].copy_(mdb[0], non_blocking=True)
             off += nb
     if dev.type == "cuda":
@@ -204,7 +207,7 @@ def _gonzalez_source(source, k: int, *, first: int = 0, impl: str = "auto",
 
 
 def covering_radius(points, centers, *, mask=None, impl: str = "auto",
-                    block_rows: int | None = None,
+                    chunk: int | None = None, block_rows: int | None = None,
                     memory_budget: int | None = None,
                     device=None) -> torch.Tensor:
     """Euclidean covering radius of ``centers`` over (masked) ``points``.
@@ -212,17 +215,18 @@ def covering_radius(points, centers, *, mask=None, impl: str = "auto",
     ``points`` may be a point source; a host, disk or generator source
     folds the radius block by block (``ops.fold_min_d2``) so the input is
     never whole on the device. ``mask`` is not supported for streamed
-    sources. ``device=None`` means ``"cuda"``."""
+    sources. ``chunk`` bounds the plain route's (chunk, k) tiles.
+    ``device=None`` means ``"cuda"``."""
     dev = resolve_device(device)
     if is_source(points) and not isinstance(points, ArraySource):
         if mask is not None:
             raise ValueError("mask is not supported for streamed PointSources")
         return torch.sqrt(ops.fold_min_d2(points, centers, impl=impl,
-                                          block_rows=block_rows,
+                                          chunk=chunk, block_rows=block_rows,
                                           memory_budget=memory_budget,
                                           device=dev))
     _, d2 = ops.assign_nearest(as_points(points, dev), as_points(centers, dev),
-                               impl=impl)
+                               impl=impl, chunk=chunk)
     if mask is not None:
         d2 = torch.where(torch.as_tensor(mask, device=dev), d2, 0.0)
     return torch.sqrt(d2.max())

@@ -10,8 +10,8 @@ Inputs are numpy arrays, tensors or point sources: raw arrays run in
 memory on ``SimExecutor``, a host, disk or generator source streams on
 ``HostStreamExecutor``. An ``Objective`` makes the run weighted (the
 cluster weights in ``MRGResult.weights``) or scores the radius without the
-z farthest points. The row-chunked (``chunk``) form is not ported yet and
-raises.
+z farthest points. ``chunk`` streams every distance pass's plain route in
+row chunks (the centers do not change).
 """
 from __future__ import annotations
 
@@ -72,7 +72,9 @@ def mrg(points, k: int, *, executor: Executor | None = None, m: int = 50,
     ``objective`` (an ``Objective``; ``None`` is plain k-center):
     ``weighted=True`` threads the source's row weights through every round
     and fills ``MRGResult.weights`` with the per-cluster sums;
-    ``outliers=z`` scores ``radius2`` with the top-(z+1) fold.
+    ``outliers=z`` scores ``radius2`` with the top-(z+1) fold. ``chunk``
+    (rows) bounds every distance pass's plain-route tiles
+    (``engine.resolve_chunk``); on the kernel route it changes nothing.
 
     >>> import numpy as np
     >>> x = np.random.default_rng(0).normal(size=(256, 2)).astype(np.float32)
@@ -80,8 +82,6 @@ def mrg(points, k: int, *, executor: Executor | None = None, m: int = 50,
     >>> tuple(res.centers.shape), res.rounds
     ((4, 2), 2)
     """
-    if chunk is not None:
-        raise NotImplementedError("chunk (streamed passes) is not ported yet")
     plain = _is_plain(objective)
     streamed = is_source(points) and not isinstance(points, ArraySource)
     if executor is None:
@@ -96,10 +96,12 @@ def mrg(points, k: int, *, executor: Executor | None = None, m: int = 50,
                   else ArraySource(points, device=executor.device))
     if not plain and objective.weighted:
         centers, r2, rounds, w = executor.mrg(
-            source, k, capacity=capacity, impl=impl, objective=objective)
+            source, k, capacity=capacity, impl=impl, chunk=chunk,
+            objective=objective)
         return MRGResult(centers, r2, rounds, w)
     centers, r2, rounds = executor.mrg(source, k, capacity=capacity,
-                                       impl=impl, objective=objective)
+                                       impl=impl, chunk=chunk,
+                                       objective=objective)
     return MRGResult(centers, r2, rounds)
 
 

@@ -123,7 +123,7 @@ def kz_center(points, k: int, z: int, *, t: int | None = None,
     round-1 union exceeds ``solve_capacity`` (default ``max(2048, 2·t)``),
     weighted Lemma-3 levels (``combine_weighted(..., final_gon=False)``)
     shrink it first. The coreset is read to the host once for the float64
-    solve. ``chunk`` is not ported yet and raises.
+    solve. ``chunk`` (rows) bounds every distance pass's plain-route tiles.
 
     Returns ``KZResult``: k centers, the squared covering radius excluding
     the z farthest points (a streamed top-(z+1) fold over the original
@@ -139,8 +139,6 @@ def kz_center(points, k: int, z: int, *, t: int | None = None,
     >>> float(res.radius2) < 100.0              # outliers excluded
     True
     """
-    if chunk is not None:
-        raise NotImplementedError("chunk (row-chunked passes) is not ported yet")
     if k < 1:
         raise ValueError(f"need k >= 1, got k={k}")
     if z < 0:
@@ -163,7 +161,7 @@ def kz_center(points, k: int, z: int, *, t: int | None = None,
 
     # Round 1: per-machine weighted GON — t centers per block, each
     # carrying the weight of the rows it absorbed.
-    fn = weighted_gon_block_fn(t, impl)
+    fn = weighted_gon_block_fn(t, impl, chunk)
     centers, valid, cw = executor.run_blocks(fn, source, objective=objective)
 
     # Optional intermediate levels: shrink the union to the host-solve
@@ -173,7 +171,7 @@ def kz_center(points, k: int, z: int, *, t: int | None = None,
     extra = 0
     if centers.shape[0] > solve_capacity:
         centers, cw, valid, extra = executor.combine_weighted(
-            centers, valid, cw, t, solve_capacity, impl=impl,
+            centers, valid, cw, t, solve_capacity, impl=impl, chunk=chunk,
             final_gon=False)
 
     # The sequential outlier-aware solve on the weighted coreset (host,
@@ -192,7 +190,8 @@ def kz_center(points, k: int, z: int, *, t: int | None = None,
 
     # The (k,z) objective value over the ORIGINAL source: streamed
     # top-(z+1) fold — slot z is the radius after excluding the z farthest.
-    r2 = executor.radius2(source, kcenters, impl=impl, objective=objective)
+    r2 = executor.radius2(source, kcenters, impl=impl, chunk=chunk,
+                          objective=objective)
     return KZResult(kcenters, r2, int(cpts.shape[0]), 2 + extra)
 
 

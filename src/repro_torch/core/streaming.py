@@ -50,11 +50,12 @@ def _read(t) -> np.ndarray:
     return t.cpu().numpy()
 
 
-def _min_d2(x: np.ndarray, centers: np.ndarray, impl: str, dev) -> np.ndarray:
+def _min_d2(x: np.ndarray, centers: np.ndarray, impl: str, dev,
+            chunk: int | None = None) -> np.ndarray:
     """The coverage pass: each row's squared distance to its nearest
     center, computed on ``dev`` and read back."""
     _, d2 = ops.assign_nearest(upload(x, dev), upload(centers, dev),
-                               impl=impl)
+                               impl=impl, chunk=chunk)
     stream_update.coverage_passes += 1
     return _read(d2)
 
@@ -77,10 +78,8 @@ def stream_update(state: StreamState, batch, *, chunk: int | None = None,
     insertion; ``"device"`` re-runs the pass after every insertion.
 
     ``impl`` and ``device`` (``None`` means ``"cuda"``) are the distance
-    passes', as for every entry point of the port; ``chunk`` is not ported
-    yet and raises."""
-    if chunk is not None:
-        raise NotImplementedError("chunk (row-chunked passes) is not ported yet")
+    passes', as for every entry point of the port; ``chunk`` (rows) bounds
+    the coverage pass's plain-route tiles."""
     if tail not in ("host", "device"):
         raise ValueError(f"tail must be 'host' or 'device', got {tail!r}")
     dev = resolve_device(device)
@@ -91,8 +90,8 @@ def stream_update(state: StreamState, batch, *, chunk: int | None = None,
         # The sketch's fold runs on the host, so take the source's numpy
         # blocks (a device-resident source's blocks are pulled down).
         for blk in ops.host_blocks_of(batch, rows):
-            state = stream_update(state, blk, tail=tail, impl=impl,
-                                  device=dev)
+            state = stream_update(state, blk, chunk=chunk, tail=tail,
+                                  impl=impl, device=dev)
         return state
     centers, count, r, k = (np.array(state.centers), state.count,
                             state.r, state.k)
@@ -117,7 +116,7 @@ def stream_update(state: StreamState, batch, *, chunk: int | None = None,
     while batch.size:
         # vectorized drop of covered points (≤ 4r of a center: the
         # doubling invariant allows absorbing them) — ONE device pass
-        d2 = _min_d2(batch, centers[:count], impl, dev)
+        d2 = _min_d2(batch, centers[:count], impl, dev, chunk)
         dist = np.sqrt(d2)
         keep = dist > 4.0 * r
         batch, dist = batch[keep], dist[keep]

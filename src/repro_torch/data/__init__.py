@@ -10,6 +10,7 @@ from .pointsets import GENERATORS, gau, kddlike, pokerlike, unb, unif  # noqa: F
 from .source import (  # noqa: F401
     ArraySource,
     HostSource,
+    IndexedSource,
     MemmapSource,
     PointSource,
     SyntheticSource,

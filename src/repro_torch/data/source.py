@@ -39,8 +39,9 @@ slot (the residency model's per-row carry), so a block and its weights are
 copied and released together. ``has_weights``, ``weights_of`` and
 ``take_weights`` give unit weights for every other source.
 
-The view sources (indexed, slice, sharded, process-sharded) are not ported
-yet.
+``IndexedSource`` is a view of a parent source through sorted global row
+indices: the compacted relation of the streamed EIM. The other view
+sources (slice, sharded, process-sharded) are not ported yet.
 """
 from __future__ import annotations
 
@@ -507,6 +508,94 @@ class SyntheticSource(_HostBacked):
                                   np.float32)
             i = j
         return out
+
+
+class IndexedSource(_HostBacked):
+    """A view of a parent source through sorted global row indices.
+
+    View row ``j`` is parent row ``indices[j]``: the streamed EIM compacts
+    its shrinking relation into such a view, so a fold touches only the
+    surviving rows, while every row keeps the parent's absolute index (the
+    Philox counter the Round-1 sampler keys on). ``indices`` must be
+    strictly increasing, so the view keeps global row order (value folds
+    stay bitwise the uncompacted pass) and ``take`` meets maximal runs of
+    consecutive rows in the parent. Views of views compose:
+    ``IndexedSource(IndexedSource(p, a), b)`` is ``IndexedSource(p,
+    a[b])``. Blocks are gathered on the host by the parent's ``take`` and
+    uploaded through the pinned ring.
+
+    >>> import numpy as np
+    >>> v = IndexedSource(HostSource(np.arange(10, dtype=np.float32)[:, None]),
+    ...                   [1, 4, 7])
+    >>> v.n, v.take([2]).tolist(), IndexedSource(v, [0, 2]).indices.tolist()
+    (3, [[7.0]], [1, 7])
+    """
+
+    def __init__(self, parent, indices):
+        idx = np.asarray(indices, np.int64).reshape(-1)
+        if idx.size:
+            if idx.min() < 0 or idx.max() >= parent.n:
+                raise IndexError(
+                    f"view indices out of range [0, {parent.n}): "
+                    f"min={idx.min()}, max={idx.max()}")
+            if idx.size > 1 and (np.diff(idx) <= 0).any():
+                raise ValueError(
+                    "IndexedSource indices must be strictly increasing "
+                    "(sorted, no duplicates): the view keeps global row order")
+        if isinstance(parent, IndexedSource):
+            idx = parent._idx[idx]
+            parent = parent._parent
+        self._parent = parent
+        self._idx = idx
+
+    @property
+    def parent(self):
+        return self._parent
+
+    @property
+    def indices(self) -> np.ndarray:
+        """The root-composed global row indices of the view."""
+        return self._idx
+
+    @property
+    def n(self) -> int:
+        return int(self._idx.size)
+
+    @property
+    def d(self) -> int:
+        return self._parent.d
+
+    def host_blocks(self, block_rows: int) -> Iterator[np.ndarray]:
+        """Numpy blocks gathered from the parent, no device transfer."""
+        rows = _check_rows(block_rows)
+        for start in range(0, self.n, rows):
+            yield self._parent.take(self._idx[start:start + rows])
+
+    def row(self, idx: int) -> np.ndarray:
+        if not 0 <= idx < self.n:
+            raise IndexError(f"row {idx} out of range for n={self.n}")
+        return self._parent.row(int(self._idx[idx]))
+
+    def take(self, indices) -> np.ndarray:
+        """Gather view rows: composed through to the parent's indices."""
+        return self._parent.take(self._idx[_check_take_indices(indices,
+                                                               self.n)])
+
+    @property
+    def has_weights(self) -> bool:
+        return has_weights(self._parent)
+
+    def weights_of(self, start: int, rows: int) -> np.ndarray:
+        return take_weights(self._parent, self._idx[start:start + rows])
+
+    def take_weights(self, indices) -> np.ndarray:
+        return take_weights(self._parent,
+                            self._idx[_check_take_indices(indices, self.n)])
+
+    def materialize(self, device=None) -> torch.Tensor:
+        """The view's rows as one tensor on ``device`` (``None`` means
+        ``"cuda"``): one gather from the parent."""
+        return upload(self._parent.take(self._idx), resolve_device(device))
 
 
 class WeightedSource:

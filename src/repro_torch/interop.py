@@ -31,9 +31,10 @@ def state_from_jax(arrays: dict[str, np.ndarray], device) -> dict[str, torch.Ten
 
 def result_to_numpy(result):
     """A port result (a tensor, or a NamedTuple such as ``MRGResult`` with
-    its cluster ``weights``, ``KZResult`` or ``Coreset``) as numpy: tensors
-    become arrays, a NamedTuple a dict of its fields; other values
-    (``rounds``, ``coreset_size``, ``None``) pass through."""
+    its cluster ``weights``, ``KZResult``, ``Coreset`` or ``EIMResult``) as
+    numpy: tensors become arrays, a NamedTuple a dict of its fields, nested
+    ones (``EIMResult.sample``) included; other values (``rounds``,
+    ``coreset_size``, ``None``) pass through."""
     if isinstance(result, torch.Tensor):
         return result.detach().cpu().numpy()
     if isinstance(result, tuple) and hasattr(result, "_fields"):

@@ -22,6 +22,22 @@ residency model), and fold each block into O(m)- or O(rank)-sized state on
 the device: no per-block value is read back to the host. The weighted
 folds take each block's row weights from the same ring slot as its points
 (``_weighted_source_blocks``).
+
+Row-chunked passes: every distance op takes ``chunk`` (rows);
+``assign_nearest``, ``fused_min_argmax``, ``pairwise_dist2`` and
+``argmin_dist2_over_rows`` also take ``memory_budget`` (bytes, solved by
+``resolve_chunk`` against the working set ``4·chunk·(m + d) + 4·m·d``). On the plain route the (n, m) distance
+block is then built ``chunk`` rows at a time, as the JAX engine's
+``lax.scan`` does, so n is bounded by the points' memory, not the
+matrix's; the arg-reductions merge across chunks on strict ``<`` / ``>``,
+so the earliest chunk keeps a tie and the results are bitwise the
+unchunked ones. On the kernel route ``chunk`` is accepted and changes
+nothing: the kernels stream rows and never build (n, m).
+
+EIM's pieces (paper §4): the counter-based per-row samplers
+(Philox-4x32-10 keyed by the absolute row index, ``uniform_rows`` and its
+forms), the key split (``split_key``, threefry-2x32 on the host) and one
+block's filter step (``filter_tile_update``, ``eim_filter_block``).
 """
 from __future__ import annotations
 
@@ -65,6 +81,46 @@ def _pad_rows(a: torch.Tensor, mult: int, fill: float):
     return torch.cat([a, tail]), n
 
 
+def resolve_chunk(n: int, m: int, d: int, *, chunk: int | None = None,
+                  memory_budget: int | None = None) -> int | None:
+    """Row-chunk size for an ``(n, d) × (m, d)`` distance op.
+
+    An explicit ``chunk`` wins (clipped to ``[1, n]``; ``chunk >= n`` is one
+    chunk). Otherwise a ``memory_budget`` in bytes is solved against the
+    f32 working set ``4·chunk·(m + d) + 4·m·d``: the streamed tile and the
+    resident centers. ``None`` when neither is given (unchunked)."""
+    if chunk is not None:
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        return min(int(chunk), max(n, 1))
+    if memory_budget is not None:
+        avail = memory_budget - 4 * m * d
+        rows = avail // (4 * (m + d)) if avail > 0 else 0
+        if rows < 1:
+            raise ValueError(
+                f"memory_budget={memory_budget} cannot hold even one row "
+                f"(centers alone need {4 * m * d} bytes + {4 * (m + d)}/row)")
+        return min(int(rows), max(n, 1))
+    return None
+
+
+def _blocks(a: torch.Tensor, chunk: int, fill: float):
+    """Pad the rows of ``a`` to a chunk multiple with ``fill`` and view them
+    as ``(nb, chunk, ...)``. Returns ``(blocks, n)``."""
+    ap, n = _pad_rows(a, chunk, fill)
+    return ap.view((ap.shape[0] // chunk, chunk) + tuple(ap.shape[1:])), n
+
+
+def _chunk_of(x, c, chunk, memory_budget):
+    """``resolve_chunk`` for rows ``x (..., n, d)`` against ``c (..., m,
+    d)``: ``None`` where one chunk holds every row. A chunk holds two rows
+    at least: PyTorch takes a one-row product to its matrix-vector routine,
+    which rounds otherwise than the matrix product of the unchunked pass."""
+    n, d, m = x.shape[-2], x.shape[-1], c.shape[-2]
+    rows = resolve_chunk(n, m, d, chunk=chunk, memory_budget=memory_budget)
+    return None if rows is None or rows >= n else max(rows, 2)
+
+
 def dist2_to_center(x, c, *, impl: str = "auto"):
     """Squared distance of each row of ``x (..., n, d)`` to ``c (..., d)``.
 
@@ -74,15 +130,23 @@ def dist2_to_center(x, c, *, impl: str = "auto"):
     return ref.dist2_to_center(x, c)
 
 
-def pairwise_dist2(x, c, *, impl: str = "auto", chunk: int | None = None):
+def pairwise_dist2(x, c, *, impl: str = "auto", chunk: int | None = None,
+                   memory_budget: int | None = None):
     """``(n, d), (m, d) -> (n, m)`` squared distances, f32 or f16 inputs
-    computed in f32 (see ``pairwise.pairwise_dist2_ref``). ``chunk`` is not
-    ported yet and raises."""
-    if chunk is not None:
-        raise NotImplementedError("chunk (row-chunked passes) is not ported yet")
+    computed in f32 (see ``pairwise.pairwise_dist2_ref``). The output is
+    (n, m) whatever the chunk; the plain route's chunks bound its
+    temporaries."""
+    rows = _chunk_of(x, c, chunk, memory_budget)
     if _resolve(impl, x):
         return pairwise_dist2_cuda(x, c)
-    return pairwise_dist2_ref(x, c)
+    if rows is None:
+        return pairwise_dist2_ref(x, c)
+    xb, n = _blocks(x, rows, 0.0)
+    out = torch.empty((n, c.shape[0]), dtype=torch.float32, device=x.device)
+    for i, blk in enumerate(xb):
+        s = i * rows
+        out[s:s + rows] = pairwise_dist2_ref(blk, c)[:n - s]
+    return out
 
 
 def gon_workspace(m: int, x, *, impl: str = "auto"):
@@ -94,7 +158,8 @@ def gon_workspace(m: int, x, *, impl: str = "auto"):
 
 def fused_min_argmax(x, c, md, *, impl: str = "auto", ws=None, centers=None,
                      indices=None, slot: int = -1, carry=None, off: int = 0,
-                     reset: bool = False):
+                     reset: bool = False, chunk: int | None = None,
+                     memory_budget: int | None = None):
     """Batched GON step: ``x (m, per, d)``, ``c (m, d)``, ``md (m, per)`` ->
     ``(md, far_val (m,), far_idx (m,) int32)``. ``md`` is updated in place
     on both routes. Rows whose ``md`` is -3.4e38 (padding, masked rows)
@@ -102,19 +167,59 @@ def fused_min_argmax(x, c, md, *, impl: str = "auto", ws=None, centers=None,
     The next center goes to a ``centers``/``indices`` slot and a streamed
     pass's ``carry`` on the device (see ``ref.fused_min_argmax``); ``ws``
     is the run's ``gon_workspace``, whose buffers hold the kernel route's
-    ``far_val``/``far_idx`` until its next step."""
+    ``far_val``/``far_idx`` until its next step.
+
+    ``chunk`` rows at a time on the plain route (slices of ``per``, so the
+    last is short and no padded row is made): each chunk's far point
+    replaces the running one on strict ``>``, so the earliest chunk keeps
+    a tie, as the unchunked argmax does."""
+    rows = resolve_chunk(x.shape[1], 1, x.shape[2], chunk=chunk,
+                         memory_budget=memory_budget)
     out = dict(centers=centers, indices=indices, slot=slot, carry=carry,
                off=off, reset=reset)
     if _resolve(impl, x):
         return fused_min_argmax_cuda(x, c, md, ws=ws, **out)
-    return ref.fused_min_argmax(x, c, md, **out)
+    if rows is None or rows >= x.shape[1]:
+        return ref.fused_min_argmax(x, c, md, **out)
+    val = idx = None
+    for s in range(0, x.shape[1], rows):
+        mdc = md[:, s:s + rows]
+        torch.minimum(mdc, ref.dist2_to_center(x[:, s:s + rows], c), out=mdc)
+        i = torch.argmax(mdc, dim=-1)
+        v = mdc.gather(-1, i.unsqueeze(-1)).squeeze(-1)
+        if val is None:
+            val, idx = v, i + s
+        else:
+            take = v > val
+            val = torch.where(take, v, val)
+            idx = torch.where(take, i + s, idx)
+    return ref.gon_write(x, md, val, idx, **out)
 
 
-def assign_nearest(x, c, *, impl: str = "auto"):
-    """Nearest-center assignment: ``(idx (n,) int32, d2 (n,))``."""
+def _assign_chunked(x, c, rows: int):
+    """The plain assign, ``rows`` rows at a time (padded with 0 to whole
+    chunks, the padding's results dropped)."""
+    xb, n = _blocks(x, rows, 0.0)
+    idx = torch.empty((n,), dtype=torch.int32, device=x.device)
+    d2 = torch.empty((n,), dtype=torch.float32, device=x.device)
+    for i, blk in enumerate(xb):
+        s = i * rows
+        bi, bd = ref.assign_nearest(blk, c)
+        idx[s:s + rows], d2[s:s + rows] = bi[:n - s], bd[:n - s]
+    return idx, d2
+
+
+def assign_nearest(x, c, *, impl: str = "auto", chunk: int | None = None,
+                   memory_budget: int | None = None):
+    """Nearest-center assignment: ``(idx (n,) int32, d2 (n,))``. With
+    ``chunk``/``memory_budget`` the plain route reduces each (chunk, m)
+    tile to its rows' (argmin, min), so (n, m) is never built."""
+    rows = _chunk_of(x, c, chunk, memory_budget)
     if _resolve(impl, x):
         return assign_nearest_cuda(x, c)
-    return ref.assign_nearest(x, c)
+    if rows is None:
+        return ref.assign_nearest(x, c)
+    return _assign_chunked(x, c, rows)
 
 
 def assign_nearest_batched(x, c, *, impl: str = "auto"):
@@ -126,58 +231,109 @@ def assign_nearest_batched(x, c, *, impl: str = "auto"):
     return ref.assign_nearest(x, c)
 
 
-def assign_sums(x, c, sums, w=None, *, impl: str = "auto"):
+def assign_sums(x, c, sums, w=None, *, impl: str = "auto",
+                chunk: int | None = None):
     """Add each row's weight ``w`` (f32 sums), or 1 (int32 counts,
     ``w=None``), into the slot of its nearest center, in place: ``x (n,
     d)`` against ``c (k, d)`` into ``sums (k,)``, or machine blocks ``x (m,
     per, d)`` against their own ``c (m, k, d)`` into ``sums (m, k)``.
     Returns ``sums``. One launch of the assign's sums entry on the card;
     the plain route is the assign, then ``index_add_``
-    (``ref.assign_sums``)."""
+    (``ref.assign_sums``), ``chunk`` rows of each machine at a time (a
+    slot's adds keep their row order)."""
+    rows = _chunk_of(x, c, chunk, None)
     if _resolve(impl, x):
         return assign_sums_cuda(x, c, sums, w)
-    return ref.assign_sums(x, c, sums, w)
+    if rows is None:
+        return ref.assign_sums(x, c, sums, w)
+    for s in range(0, x.shape[-2], rows):
+        ref.assign_sums(x[..., s:s + rows, :], c, sums,
+                        None if w is None else w[..., s:s + rows])
+    return sums
 
 
-def argmin_dist2_over_rows(x, c, *, impl: str = "auto"):
+def _argmin_chunked(x, c, rows: int):
+    """For each center of ``c``, the nearest row of ``x``, ``rows`` rows at
+    a time: the rows padded at 1e18 (never nearest), each chunk's (min,
+    argmin) taking a center's slot on strict ``<`` so the earliest chunk
+    keeps a tie. Returns ``(best_d, best_i int32)``."""
+    xb, _ = _blocks(x, rows, 1e18)
+    best_d = best_i = None
+    for i, blk in enumerate(xb):
+        bd, bi = ref.fused_argmin(blk, c)
+        if best_d is None:
+            best_d, best_i = bd, bi + i * rows
+        else:
+            take = bd < best_d
+            best_d = torch.where(take, bd, best_d)
+            best_i = torch.where(take, bi + i * rows, best_i)
+    return best_d, best_i
+
+
+def argmin_dist2_over_rows(x, c, *, impl: str = "auto",
+                           chunk: int | None = None,
+                           memory_budget: int | None = None):
     """For each center row of ``c (m, d)``, the index of the nearest row of
     ``x (n, d)``, first row on ties. The kernel route is the per-center
     argmin on one block from a fresh carry (many rows against few
-    centers); the plain route ``assign_nearest(c, x)[0]``. Each pair rounds
-    as in the assign (``csrc/dist2.cuh``), so the two kernels agree."""
+    centers); the plain route ``assign_nearest(c, x)[0]``, or with
+    ``chunk``/``memory_budget`` the (chunk, m) tiles of x's rows merged on
+    strict ``<``. Each pair rounds as in the assign (``csrc/dist2.cuh``),
+    so the two kernels agree."""
+    rows = _chunk_of(x, c, chunk, memory_budget)
     if _resolve(impl, x):
         return fused_argmin(x, c, impl="kernel")[1]
-    return ref.assign_nearest(c, x)[0]
+    if rows is None:
+        return ref.assign_nearest(c, x)[0]
+    return _argmin_chunked(x, c, rows)[1]
 
 
 def fused_filter(x, c, ds=None, hm=None, *, rank: int, w=None,
-                 impl: str = "auto"):
+                 impl: str = "auto", chunk: int | None = None):
     """The streamed filter step on one block: ``(ds, tops (tiles, rank))``
     (see ``ref.fused_filter``); ``ds`` is updated in place. With row
     weights ``w`` the weighted kernel runs: ``w <= 0`` rows are out of
-    top-k candidacy."""
+    top-k candidacy. The plain route's chunks are whole filter tiles
+    (``chunk`` floored to a multiple of ``ref.FILTER_TILE_ROWS``, one tile
+    at least), so a tile's top-k is the same."""
+    rows = _chunk_of(x, c, chunk, None)
     if _resolve(impl, x):
         if w is None:
             return fused_filter_cuda(x, c, ds, hm, rank=rank)
         return fused_filter_w_cuda(x, c, ds, hm, w=w, rank=rank)
-    return ref.fused_filter(x, c, ds, hm, rank=rank, w=w)
+    if rows is None:
+        return ref.fused_filter(x, c, ds, hm, rank=rank, w=w)
+    tile = ref.FILTER_TILE_ROWS
+    step = max(tile, rows // tile * tile)
+    tops = []
+    for s in range(0, x.shape[0], step):
+        part = [None if t is None else t[s:s + step] for t in (ds, hm, w)]
+        tops.append(ref.fused_filter(x[s:s + step], c, part[0], part[1],
+                                     rank=rank, w=part[2])[1])
+    return ds, torch.cat(tops)
 
 
-def fused_assign(x, c, *, impl: str = "auto"):
+def fused_assign(x, c, *, impl: str = "auto", chunk: int | None = None):
     """Nearest center of every row of a streamed block: ``(idx (n,) int32,
     d2 (n,))`` (the streamed kernel; ``assign_nearest``'s function)."""
+    rows = _chunk_of(x, c, chunk, None)
     if _resolve(impl, x):
         return fused_assign_cuda(x, c)
-    return ref.assign_nearest(x, c)
+    if rows is None:
+        return ref.assign_nearest(x, c)
+    return _assign_chunked(x, c, rows)
 
 
-def fused_argmin(x, c, *, impl: str = "auto"):
+def fused_argmin(x, c, *, impl: str = "auto", chunk: int | None = None):
     """For each center, the nearest row of one block: ``(best_d (m,),
     best_i (m,) int32)``, first row on ties (see ``ref.fused_argmin``)."""
     if _resolve(impl, x):
         carry = fused_argmin_cuda(x, c, argmin_carry(c.shape[0], x.device))
         return unpack_argmin(carry)
-    return ref.fused_argmin(x, c)
+    rows = _chunk_of(x, c, chunk, None) if x.shape[0] else None
+    if rows is None:
+        return ref.fused_argmin(x, c)
+    return _argmin_chunked(x, c, rows)
 
 
 # ---------------------------------------------------------------------------
@@ -304,7 +460,7 @@ def _weighted_source_blocks(source, rows: int, prefetch: int | None, device):
         off += nb
 
 
-def fold_min_d2(source, c, *, impl: str = "auto",
+def fold_min_d2(source, c, *, impl: str = "auto", chunk: int | None = None,
                 block_rows: int | None = None,
                 memory_budget: int | None = None,
                 prefetch: int | None = None, weighted: bool = False,
@@ -317,9 +473,10 @@ def fold_min_d2(source, c, *, impl: str = "auto",
     the block maxima combine by ``torch.maximum`` on the device.
     ``weighted=True`` restricts the max to rows of weight > 0 (the rank-1
     case of ``fold_top_k_min_d2``; with all weights positive, the same
-    value). ``device=None`` means ``"cuda"``."""
+    value). ``chunk`` bounds the plain route's (chunk, k) tiles within a
+    block. ``device=None`` means ``"cuda"``."""
     if weighted:
-        top = fold_top_k_min_d2(source, c, 1, impl=impl,
+        top = fold_top_k_min_d2(source, c, 1, impl=impl, chunk=chunk,
                                 block_rows=block_rows,
                                 memory_budget=memory_budget,
                                 prefetch=prefetch, weighted=True,
@@ -330,7 +487,7 @@ def fold_min_d2(source, c, *, impl: str = "auto",
                                prefetch, device)
     best = None
     for blk in _source_blocks(source, rows, prefetch, dev):
-        _, tops = fused_filter(blk, c, rank=1, impl=impl)
+        _, tops = fused_filter(blk, c, rank=1, impl=impl, chunk=chunk)
         bmax = tops.amax()
         best = bmax if best is None else torch.maximum(best, bmax)
     if best is None:
@@ -339,6 +496,7 @@ def fold_min_d2(source, c, *, impl: str = "auto",
 
 
 def fold_top_k_min_d2(source, c, rank: int, *, impl: str = "auto",
+                      chunk: int | None = None,
                       block_rows: int | None = None,
                       memory_budget: int | None = None,
                       prefetch: int | None = None, weighted: bool = False,
@@ -362,16 +520,18 @@ def fold_top_k_min_d2(source, c, rank: int, *, impl: str = "auto",
     top = top_k_init(rank, dev)
     if weighted:
         for blk, w in _weighted_source_blocks(source, rows, prefetch, dev):
-            _, tops = fused_filter(blk, c, rank=rank, w=w, impl=impl)
+            _, tops = fused_filter(blk, c, rank=rank, w=w, impl=impl,
+                                   chunk=chunk)
             top = merge_top_k(top, tops, rank)
         return top
     for blk in _source_blocks(source, rows, prefetch, dev):
-        _, tops = fused_filter(blk, c, rank=rank, impl=impl)
+        _, tops = fused_filter(blk, c, rank=rank, impl=impl, chunk=chunk)
         top = merge_top_k(top, tops, rank)
     return top
 
 
 def assign_nearest_source(source, c, *, impl: str = "auto",
+                          chunk: int | None = None,
                           block_rows: int | None = None,
                           memory_budget: int | None = None,
                           prefetch: int | None = None, device=None):
@@ -383,10 +543,11 @@ def assign_nearest_source(source, c, *, impl: str = "auto",
     dev, rows, c = _fold_setup(source, c, block_rows, memory_budget,
                                prefetch, device)
     for blk in _source_blocks(source, rows, prefetch, dev):
-        yield fused_assign(blk, c, impl=impl)
+        yield fused_assign(blk, c, impl=impl, chunk=chunk)
 
 
 def assign_sums_source(source, c, *, impl: str = "auto",
+                       chunk: int | None = None,
                        block_rows: int | None = None,
                        memory_budget: int | None = None,
                        prefetch: int | None = None, weighted: bool = False,
@@ -402,15 +563,16 @@ def assign_sums_source(source, c, *, impl: str = "auto",
     if weighted:
         sums = torch.zeros((c.shape[0],), dtype=torch.float32, device=dev)
         for blk, w in _weighted_source_blocks(source, rows, prefetch, dev):
-            assign_sums(blk, c, sums, w, impl=impl)
+            assign_sums(blk, c, sums, w, impl=impl, chunk=chunk)
         return sums
     sums = torch.zeros((c.shape[0],), dtype=torch.int32, device=dev)
     for blk in _source_blocks(source, rows, prefetch, dev):
-        assign_sums(blk, c, sums, impl=impl)
+        assign_sums(blk, c, sums, impl=impl, chunk=chunk)
     return sums
 
 
 def argmin_dist2_over_source(source, c, *, impl: str = "auto",
+                             chunk: int | None = None,
                              block_rows: int | None = None,
                              memory_budget: int | None = None,
                              prefetch: int | None = None,
@@ -437,9 +599,232 @@ def argmin_dist2_over_source(source, c, *, impl: str = "auto",
     best_d = torch.full((m,), ref.BIG, dtype=torch.float32, device=dev)
     best_i = torch.zeros((m,), dtype=torch.int32, device=dev)
     for blk in _source_blocks(source, rows, prefetch, dev):
-        bd, bi = ref.fused_argmin(blk, c)
+        bd, bi = fused_argmin(blk, c, impl="ref", chunk=chunk)
         take = bd < best_d
         best_d = torch.where(take, bd, best_d)
         best_i = torch.where(take, bi + off, best_i)
         off += blk.shape[0]
     return best_i
+
+
+# ---------------------------------------------------------------------------
+# EIM's keys: threefry-2x32, as the JAX package splits its PRNG keys
+# ---------------------------------------------------------------------------
+#
+# EIM splits its key each iteration (``jax.random.split(key, 3)`` in the
+# JAX package). With jax's partitionable threefry (the default of the jax
+# versions the tests run), ``split(key, num)[i]`` is the threefry-2x32 hash
+# of the counter pair (0, i) under the key. The port computes it on the
+# host, in Python integers: a few dozen operations an iteration.
+
+_M32 = 0xFFFFFFFF
+_THREEFRY_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl32(v: int, r: int) -> int:
+    return ((v << r) | (v >> (32 - r))) & _M32
+
+
+def _threefry2x32(k0: int, k1: int, x0: int, x1: int) -> tuple[int, int]:
+    """Threefry-2x32, 20 rounds, of the counter words ``(x0, x1)``."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0, x1 = (x0 + ks[0]) & _M32, (x1 + ks[1]) & _M32
+    for g in range(5):
+        for r in _THREEFRY_ROT[g % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl32(x1, r) ^ x0
+        x0 = (x0 + ks[(g + 1) % 3]) & _M32
+        x1 = (x1 + ks[(g + 2) % 3] + g + 1) & _M32
+    return x0, x1
+
+
+def key_words(key) -> tuple[int, int]:
+    """The two uint32 words of a key: an int seed maps to ``(0, seed mod
+    2^32)``, as ``jax.random.PRNGKey(seed)`` does with 64-bit types off;
+    anything else is two words, such as ``np.asarray(jax.random.PRNGKey(s))``
+    or ``jax.random.key_data(k)`` of a typed key."""
+    if isinstance(key, (int, np.integer)):
+        return 0, int(key) & _M32
+    words = np.asarray(key).reshape(-1)
+    if words.size != 2 or not np.issubdtype(words.dtype, np.integer):
+        raise ValueError(
+            f"a key is an int seed or two uint32 words, got {words.dtype} "
+            f"{tuple(np.shape(key))}")
+    return int(words[0]) & _M32, int(words[1]) & _M32
+
+
+def split_key(key, num: int = 2) -> np.ndarray:
+    """``num`` new keys from ``key``, as ``(num, 2)`` uint32 words: bitwise
+    ``jax.random.split(key, num)`` (partitionable threefry)."""
+    k0, k1 = key_words(key)
+    return np.array([_threefry2x32(k0, k1, 0, i) for i in range(num)],
+                    dtype=np.uint32).reshape(num, 2)
+
+
+# ---------------------------------------------------------------------------
+# counter-based per-row sampling: Philox-4x32-10 keyed by absolute row index
+# ---------------------------------------------------------------------------
+#
+# EIM's Round-1 Bernoulli draws must not depend on the blocking: the
+# streamed path sees the input in super-shards and, once compacted, as a
+# view of surviving rows, and the decision for global row i may depend on
+# (key, i) only. The port's generator is the JAX package's: one Philox
+# output word a row, counter (row lo, row hi, 0, 0), its top 24 bits scaled
+# to [0, 1). PyTorch has no usable uint32 arithmetic, so the words are int64
+# tensors held in [0, 2^32); a 32 x 32 product would overflow int64, so it
+# is taken in 16-bit limbs, as the reference takes it. The draws run on any
+# device, as plain eager ops (about 400 of them a draw).
+
+_PHILOX_M0 = 0xD2511F53
+_PHILOX_M1 = 0xCD9E8D57
+_PHILOX_W0 = 0x9E3779B9
+_PHILOX_W1 = 0xBB67AE85
+
+
+def _mulhilo32(a: int, b: torch.Tensor):
+    """``a · b`` as its (hi, lo) 32-bit words, for words ``b`` in [0,
+    2^32): 16-bit limbs keep every partial product below 2^33."""
+    a_lo, a_hi = a & 0xFFFF, a >> 16
+    b_lo, b_hi = b & 0xFFFF, b >> 16
+    ll = b_lo * a_lo
+    t = b_lo * a_hi + (ll >> 16)
+    u = (t & 0xFFFF) + b_hi * a_lo
+    hi = b_hi * a_hi + (t >> 16) + (u >> 16)
+    return hi, ((u & 0xFFFF) << 16) | (ll & 0xFFFF)
+
+
+def _philox_rows(k0: int, k1: int, c0: torch.Tensor, c1: torch.Tensor):
+    """One Philox-4x32-10 output word per counter (c0 = row lo, c1 = row
+    hi)."""
+    x0, x1 = c0, c1
+    x2 = x3 = torch.zeros_like(c0)
+    for _ in range(10):
+        hi0, lo0 = _mulhilo32(_PHILOX_M0, x0)
+        hi1, lo1 = _mulhilo32(_PHILOX_M1, x2)
+        x0, x1, x2, x3 = hi1 ^ x1 ^ k0, lo1, hi0 ^ x3 ^ k1, lo0
+        k0 = (k0 + _PHILOX_W0) & _M32
+        k1 = (k1 + _PHILOX_W1) & _M32
+    return x0
+
+
+def _uniform_words(key, c0: torch.Tensor, c1: torch.Tensor) -> torch.Tensor:
+    """U[0, 1) in f32 from the counter words: the 24 high bits of the
+    Philox word, scaled exactly."""
+    k0, k1 = key_words(key)
+    bits = _philox_rows(k0, k1, c0, c1)
+    return (bits >> 8).to(torch.float32) * (2.0 ** -24)
+
+
+def _uniform_block(key, start_lo: int, start_hi: int, rows: int,
+                   device) -> torch.Tensor:
+    if rows < 0:
+        raise ValueError(f"rows must be >= 0, got {rows}")
+    dev = resolve_device(device)
+    c0 = torch.arange(rows, dtype=torch.int64, device=dev) + int(start_lo)
+    c1 = (c0 >> 32) + int(start_hi)            # the carry into the high word
+    return _uniform_words(key, c0 & _M32, c1 & _M32)
+
+
+def _uniform_at(key, idx_lo, idx_hi, device) -> torch.Tensor:
+    dev = resolve_device(device)
+    return _uniform_words(key, _words_on(idx_lo, dev), _words_on(idx_hi, dev))
+
+
+def _words_on(words, dev: torch.device) -> torch.Tensor:
+    return upload(np.asarray(words, np.uint32).astype(np.int64), dev)
+
+
+def _below(u: torch.Tensor, p) -> torch.Tensor:
+    """``u < p`` in f32."""
+    return u < float(np.float32(p))
+
+
+def uniform_rows(key, start: int, rows: int, device=None) -> torch.Tensor:
+    """Counter-based U[0, 1) for the absolute rows ``[start, start +
+    rows)``, f32 on ``device`` (``None`` means ``"cuda"``).
+
+    Row i's value depends on ``(key, i)`` only, so the draws of any
+    partition of ``[0, n)`` concatenate to one full-range draw, bitwise;
+    they are bitwise the JAX package's ``engine.uniform_rows``. The start is
+    split into two 32-bit counter words with an explicit carry, so a block
+    may cross row 2^32."""
+    return _uniform_block(key, start & _M32, (start >> 32) & _M32, rows,
+                          device)
+
+
+def bernoulli_rows(key, start: int, rows: int, p, device=None) -> torch.Tensor:
+    """Per-row Bernoulli(p) draws for the absolute rows ``[start, start +
+    rows)``: ``uniform_rows(...) < p`` in f32, so callers that feed the
+    same f32 ``p`` agree bitwise."""
+    return _below(uniform_rows(key, start, rows, device), p)
+
+
+def bernoulli_rows_block(key, start_lo: int, start_hi: int, rows: int, p,
+                         device=None) -> torch.Tensor:
+    """``bernoulli_rows`` with the 64-bit start given as its two 32-bit
+    words (the form the streamed EIM's block loop uses)."""
+    return _below(_uniform_block(key, start_lo, start_hi, rows, device), p)
+
+
+def split_index_words(indices) -> tuple[np.ndarray, np.ndarray]:
+    """Host split of 64-bit absolute row indices into their 32-bit counter
+    words ``(lo, hi)``, uint32 numpy: the operands of
+    ``bernoulli_rows_at_block``."""
+    idx = np.asarray(indices, np.uint64).reshape(-1)
+    return ((idx & np.uint64(_M32)).astype(np.uint32),
+            (idx >> np.uint64(32)).astype(np.uint32))
+
+
+def uniform_rows_at(key, indices, device=None) -> torch.Tensor:
+    """Gather form of ``uniform_rows``: the draws at arbitrary absolute row
+    ``indices`` (host integers), so ``uniform_rows_at(key, idx) ==
+    uniform_rows(key, 0, n)[idx]`` bitwise. A compacted view's survivors
+    keep the draws of their original rows."""
+    return _uniform_at(key, *split_index_words(indices), device)
+
+
+def bernoulli_rows_at(key, indices, p, device=None) -> torch.Tensor:
+    """Per-row Bernoulli(p) draws at arbitrary absolute row ``indices``:
+    bitwise ``bernoulli_rows(key, 0, n, p)[indices]`` for the same f32
+    ``p``."""
+    return _below(uniform_rows_at(key, indices, device), p)
+
+
+def bernoulli_rows_at_block(key, idx_lo, idx_hi, p, device=None) -> torch.Tensor:
+    """The gather form with the index words given (``split_index_words``;
+    callers may pad them to one block length)."""
+    return _below(_uniform_at(key, idx_lo, idx_hi, device), p)
+
+
+# ---------------------------------------------------------------------------
+# EIM's filter step on one block (paper §4, Rounds 2-3)
+# ---------------------------------------------------------------------------
+
+def filter_tile_update(blk, c, d_blk, h_blk, *, rank: int, impl: str = "auto",
+                       chunk: int | None = None):
+    """One block's share of EIM Rounds 2-3: ``d_blk = min(d_blk, d(blk,
+    c)^2)`` in place, and the block's descending top-``min(rank, rows)`` of
+    ``where(h_blk, d_blk, -3.4e38)``. Returns ``(d_blk, top)``.
+
+    The kernel route is one filter launch (kernel #3) and the top-k of its
+    tile tops; the plain route the assign (``chunk`` rows at a time) and
+    the top-k of the masked values. Top-k values do not depend on the
+    tiling, so the two agree bitwise where the distances do."""
+    r = min(rank, d_blk.shape[0])
+    if _resolve(impl, blk):
+        _, tops = fused_filter(blk, c, d_blk, h_blk, rank=rank, impl=impl)
+        return d_blk, torch.topk(tops.reshape(-1), r).values
+    _, dn = assign_nearest(blk, c, impl=impl, chunk=chunk)
+    torch.minimum(d_blk, dn, out=d_blk)
+    cand = torch.where(h_blk, d_blk, ref.NEG)
+    return d_blk, torch.topk(cand, r).values
+
+
+def eim_filter_block(blk, c, d_blk, h_blk, top, *, rank: int,
+                     impl: str = "auto", chunk: int | None = None):
+    """``filter_tile_update`` with the block's top merged into the running
+    top-``rank`` carry ``top``: one super-shard's share of the streamed
+    filter round. Returns ``(d_blk, top)``."""
+    d_blk, tops = filter_tile_update(blk, c, d_blk, h_blk, rank=rank,
+                                     impl=impl, chunk=chunk)
+    return d_blk, merge_top_k(top, tops, rank)

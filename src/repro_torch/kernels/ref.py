@@ -62,6 +62,17 @@ def fused_min_argmax(x: torch.Tensor, c: torch.Tensor, md: torch.Tensor, *,
     torch.minimum(md, dist2_to_center(x, c), out=md)
     idx = torch.argmax(md, dim=-1)
     val = md.gather(-1, idx.unsqueeze(-1)).squeeze(-1)
+    return gon_write(x, md, val, idx, centers=centers, indices=indices,
+                     slot=slot, carry=carry, off=off, reset=reset)
+
+
+def gon_write(x: torch.Tensor, md: torch.Tensor, val: torch.Tensor,
+              idx: torch.Tensor, *, centers=None, indices=None, slot: int = -1,
+              carry=None, off: int = 0, reset: bool = False):
+    """The write half of ``fused_min_argmax``: given each machine's far
+    point ``(val, idx)`` under the updated ``md``, fold it into ``carry``
+    and write the next center into ``centers``/``indices`` as described
+    there. Returns ``(md, val, idx int32)``."""
     write = centers is not None and 0 <= slot < centers.shape[1]
     if carry is not None or write:
         row = x.gather(1, idx.view(-1, 1, 1).expand(-1, 1, x.shape[2]))[:, 0]

@@ -138,8 +138,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         SimExecutor(8)
     with pytest.raises(RuntimeError, match="CUDA"):
         covering_radius2(x, x[:2])
-    with pytest.raises(NotImplementedError):
-        mrg(x, 4, device="cpu", chunk=16)
+    # chunk is ported: the row-chunked passes pick the same centers
+    chunked, whole = mrg(x, 4, device="cpu", chunk=16), mrg(x, 4, device="cpu")
+    assert torch.equal(chunked.centers, whole.centers)
+    assert torch.equal(chunked.radius2, whole.radius2)
     with pytest.raises(NotImplementedError):
         mrg(x, 4, device="cpu", objective=object())
 

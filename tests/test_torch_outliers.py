@@ -150,8 +150,9 @@ def test_kz_center_validates_arguments():
     for args, kw in (((0, 1), {}), ((2, -1), {}), ((4, 1), {"t": 2})):
         with pytest.raises(ValueError):
             kz_center(x, *args, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="chunk"):
-        kz_center(x, 2, 1, chunk=8, device="cpu")
+    # chunk is ported: the row-chunked passes give the same result
+    assert torch.equal(kz_center(x, 2, 1, chunk=8, device="cpu").centers,
+                       kz_center(x, 2, 1, device="cpu").centers)
     with pytest.raises(ValueError, match="positive-weight"):
         kz_center(WeightedSource(HostSource(x), np.zeros(32, np.float32)),
                   2, 1, device="cpu")

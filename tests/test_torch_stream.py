@@ -392,14 +392,16 @@ def test_new_entry_points_default_to_cuda(monkeypatch):
 def test_unported_options_raise():
     x = pointsets.unif(64, seed=0)
     src, c = HostSource(x), torch.from_numpy(x[:2])
-    with pytest.raises(NotImplementedError, match="chunk"):
-        engine.pairwise_dist2(c, c, chunk=8)
-    with pytest.raises(NotImplementedError, match="chunk"):
-        mrg(src, 4, chunk=8, device="cpu")
+    # chunk is ported: chunked passes give the unchunked results
+    assert torch.equal(engine.pairwise_dist2(c, c, chunk=8),
+                       engine.pairwise_dist2(c, c))
+    assert torch.equal(mrg(src, 4, chunk=8, device="cpu").centers,
+                       mrg(src, 4, device="cpu").centers)
     with pytest.raises(NotImplementedError, match="mesh"):
         select_coreset(x, 4, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="chunk"):
-        select_coreset(x, 4, chunk=8, device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(
+        select_coreset(x, 4, chunk=8, device="cpu"),
+        select_coreset(x, 4, device="cpu")))
     with pytest.raises(NotImplementedError, match="objective"):
         HostStreamExecutor(device="cpu").mrg(src, 4, objective=object())
     with pytest.raises(ValueError, match="prefetch"):

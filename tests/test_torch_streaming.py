@@ -97,9 +97,12 @@ def test_stream_update_validates():
     with pytest.raises(ValueError, match="tail"):
         stream_update(stream_init(3, 2), np.zeros((4, 2), np.float32),
                       tail="gpu", device="cpu")
-    with pytest.raises(NotImplementedError, match="chunk"):
-        stream_update(stream_init(3, 2), np.zeros((4, 2), np.float32),
-                      chunk=2, device="cpu")
+    # chunk is ported: the coverage pass in row chunks, the same sketch
+    batch = np.random.default_rng(3).normal(size=(40, 2)).astype(np.float32)
+    a = stream_update(stream_init(3, 2), batch, chunk=2, device="cpu")
+    b = stream_update(stream_init(3, 2), batch, device="cpu")
+    np.testing.assert_array_equal(a.centers, b.centers)
+    assert (a.count, a.r) == (b.count, b.r)
 
 
 @pytest.mark.parametrize("n,m,d", [(8, 8, 2), (100, 17, 3), (26, 26, 38)])
@@ -131,7 +134,9 @@ def test_pairwise_exact_tier_bitwise_and_routes():
     with pytest.raises(ValueError, match="CUDA tensors"):
         engine.pairwise_dist2(torch.from_numpy(x), torch.from_numpy(x),
                               impl="kernel")
-    with pytest.raises(NotImplementedError, match="chunk"):
-        engine.pairwise_dist2(torch.from_numpy(x), torch.from_numpy(x),
-                              chunk=8)
+    # chunk is ported: row chunks of the plain version, bitwise the same
+    assert torch.equal(engine.pairwise_dist2(torch.from_numpy(x),
+                                             torch.from_numpy(x), chunk=8),
+                       engine.pairwise_dist2(torch.from_numpy(x),
+                                             torch.from_numpy(x)))
     assert pairwise_dist2_cuda.launches == launches
