@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of MRG (paper Algorithm 1), coreset
-selection, the weighted and outlier objectives, the streaming sketch and
-EIM (paper §4) on one GPU, in memory and out of core.
+selection, the weighted and outlier objectives, the streaming sketch, EIM
+(paper §4) and the online k-center service on one GPU, in memory and out
+of core.
 
     python3 chip_smoke.py        # from the root of a checkout, one Hopper card
 
@@ -109,6 +110,29 @@ Phases, each of which raises on failure (nothing is caught):
               SimExecutor and HostStreamExecutor, all bitwise; 10d profiles
               of one run of each form (device busy and idle share, time by
               kernel, host time enqueueing the sampler's draws).
+  11. the online k-center service (``repro_torch.serve.KCenterService``,
+              its query op ``engine.assign_bucketed`` on kernel #2): 11a the
+              op at every query row bucket (1 row padded to 8, up to 256)
+              against 11b's and 11c's center buckets, one live center, and
+              50 live centers in 64 slots at d = 7 (the live set on the
+              wide kernel, the bucket on the tiled one), exact and float:
+              bitwise the kernel on the live rows and on the whole bucket,
+              against the plain version bitwise (exact) or within
+              tolerance, one launch a call, and times at 8 x 16 x 16, 256
+              x 16 x 16 and 256 rows against the kddlike bucket; 11b the
+              service at benchmarks/serve_bench.py's configuration (k=16,
+              d=16, a gau bootstrap of 4096, 64 closed-loop clients of one
+              row, 3 s a run): batched, unbatched, under live ingest (512
+              rows every 2 ms) and open loop at 0.3 x the batched QPS,
+              with QPS, latency percentiles, dispatches, mean batch,
+              epochs, cache refreshes, host time a dispatch (pad and
+              upload, launch, read), every answer bitwise the kernel assign
+              on its epoch's centers, and exactly one synchronising call a
+              dispatch slice; 11c the service at the sketch's kddlike
+              configuration: phase 8's source ingested through
+              ``submit_points`` (its sketch bitwise phase 8's), then the
+              closed loop on held-out kddlike rows with no ingest and while
+              the source is ingested again.
 
 Prints the card's name and power limit, one JSON line describing every
 kernel, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -139,6 +163,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -1973,7 +1998,7 @@ def phase_sketch(torch, P, counters):
     from repro_torch.core import streaming
     from repro_torch.core.streaming import stream_init, stream_update
     from repro_torch.data.source import HostSource, synthetic_source
-    totals = {name: 0 for name in counters}
+    totals, states = {name: 0 for name in counters}, {}
     runs = [("unif n=1e7 d=2 synthetic", synthetic_source(
                  "unif", 10_000_000, d=2, seed=0), 25),
             ("kddlike n=4e6 d=38 host", HostSource(kdd_host(P)), 100)]
@@ -2005,6 +2030,7 @@ def phase_sketch(torch, P, counters):
                 res.centers[:res.count], ref.centers[:ref.count]),
                 f"{name}: sketch differs from impl='ref'")
             check(0 < res.count <= k and res.r > 0, f"{name}: sketch state")
+            states[(label, tail)] = res
             for c, v in launches.items():
                 totals[c] += v
             host_ms = clock.ms.get("_insert_tail", 0.0) + clock.ms.get("_merge", 0.0)
@@ -2015,7 +2041,7 @@ def phase_sketch(torch, P, counters):
                   f"insert_tail_and_merge_ms={host_ms:.3f} "
                   f"coverage_pass_ms(upload, assign, read)={clock.ms.get('_min_d2', 0.0):.3f} "
                   f"peak_MiB={peak / MiB:.2f}", flush=True)
-    return totals
+    return totals, states
 
 
 def device_profile(torch, fn):
@@ -2564,6 +2590,432 @@ def phase_eim_profile(torch, P):
             print(f"  {ms:9.4f} ms  {count:6d}x  {name[:90]}", flush=True)
 
 
+# -- slice 9: the online k-center service ------------------------------------
+
+# Phase 11a: every query row bucket of the service (1 row pads to 8; 11 to
+# 16, 50 to 64, 200 to 256) against its center buckets: 11b's sketch (k=16,
+# d=16, gau 4096), 11c's (phase 8's kddlike sketch, k=100, d=38, in 128
+# slots), one live center in 8 slots, and 50 live centers in 64 slots at
+# d=7, where the live set plans onto the wide assign kernel (k·d = 350) and
+# the bucket onto the tiled one (448). Times at 8 x 16 x 16 and 256 x 16 x
+# 16 (the wide kernel) and 256 rows against the kddlike bucket (tiled).
+SERVE_ROWS = (1, 11, 32, 50, 128, 200)
+SERVE_K, SERVE_D, SERVE_BOOT = 16, 16, 4096      # benchmarks/serve_bench.py
+SERVE_CLIENTS, SERVE_SECONDS = 64, 3.0
+SERVE_FEED_ROWS, SERVE_FEED_EVERY_S = 512, 0.002
+SERVE_POOL = 16            # held-out query rows a client cycles through
+
+
+def serve_bucket(torch, centers, mcap):
+    """``centers`` in an ``mcap``-slot bucket on the card, the rows past
+    them at the 1e18 sentinel as the service fills them, and the host
+    mask."""
+    m, d = centers.shape
+    host = np.full((mcap, d), 1e18, np.float32)
+    host[:m] = centers
+    live = np.zeros((mcap,), bool)
+    live[:m] = True
+    return torch.from_numpy(host).cuda(), live
+
+
+def serve_sets(P, rng, boot, kdd):
+    """11a's center sets: (label, float-tier centers, float-tier query
+    source, bucket slots)."""
+    from repro_torch.serve.kcenter import _pow2_at_least
+    def gau_rows(n):
+        return P.gau(n, SERVE_K, d=SERVE_D, seed=1)
+    def kdd_rows(n):
+        return P.kddlike(n, seed=1)
+    def rows7(n):
+        return (rng.normal(size=(n, 7)) * 5.0).astype(np.float32)
+    def rows16(n):
+        return (rng.normal(size=(n, SERVE_D)) * 5.0).astype(np.float32)
+    return [("11b k=16 d=16", boot, gau_rows, _pow2_at_least(boot.shape[0], 8)),
+            ("11c kddlike k=100 d=38", kdd, kdd_rows, _pow2_at_least(kdd.shape[0], 8)),
+            ("one live center d=16", rows16(1), rows16, 8),
+            ("route crossing d=7", rows7(50), rows7, 64)]
+
+
+def phase_serve_shapes(torch, engine, P, rng, results, kdd_sketch):
+    print("== phase 11a: the service's query op (engine.assign_bucketed, "
+          "assign.cu) at its buckets against the kernel on the live rows, "
+          "the kernel on the whole bucket and the plain version", flush=True)
+    from repro_torch.core.streaming import stream_init, stream_update
+    from repro_torch.kernels import ops
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.assign import assign_nearest_cuda, assign_plan
+    from repro_torch.serve.kcenter import _pow2_at_least
+    # 11b's sketch (the service's bootstrap) and phase 8's kddlike one
+    sketch = stream_update(stream_init(SERVE_K, SERVE_D),
+                           P.gau(SERVE_BOOT, SERVE_K, d=SERVE_D, seed=1))
+    boot = sketch.centers[:sketch.count]
+    kdd = kdd_sketch.centers[:kdd_sketch.count]
+    launches = 0
+    routes = set()
+    for label, centers, queries, mcap in serve_sets(P, rng, boot, kdd):
+        m, d = centers.shape
+        for tier in ("exact", "float"):
+            c = exact_points(rng, (m, d)) if tier == "exact" else centers
+            ct, live = serve_bucket(torch, c, mcap)
+            for b in SERVE_ROWS:
+                bq = _pow2_at_least(b, 8)
+                q = np.zeros((bq, d), np.float32)
+                q[:b] = exact_points(rng, (b, d)) if tier == "exact" else queries(b)
+                qt = torch.from_numpy(q).cuda()
+                before = assign_nearest_cuda.launches
+                got = ops.assign_bucketed(qt, ct, live)
+                launches += assign_nearest_cuda.launches - before
+                check(assign_nearest_cuda.launches - before == 1,
+                      f"11a {label} b={b}: {assign_nearest_cuda.launches - before} "
+                      "launches for one call")
+                live_run = engine.assign_nearest(qt[:b].contiguous(), ct[:m],
+                                                 impl="kernel")
+                whole = engine.assign_nearest(qt, ct, impl="kernel")
+                plain = ops.assign_bucketed(qt, ct, live, impl="ref")
+                torch.cuda.synchronize()
+                name = f"11a {label} {tier} b={b} bucket={bq}x{mcap} live={m}"
+                gi, gd = got[0][:b], got[1][:b]
+                check(torch.equal(gi, live_run[0]) and torch.equal(gd, live_run[1]),
+                      f"{name}: not bitwise the kernel on the live rows")
+                # the bucket's own plan (1e18 rows included) against the live
+                # run's: the two routes of assign_plan agree bitwise
+                r_live = assign_plan(b, m, d, sm_count(0))
+                r_whole = assign_plan(bq, mcap, d, sm_count(0))
+                routes.add((label, "wide" if r_live.tc == 0 else "tiled",
+                            "wide" if r_whole.tc == 0 else "tiled"))
+                check(torch.equal(gi, whole[0][:b]) and torch.equal(gd, whole[1][:b]),
+                      f"{name}: the whole bucket's launch (route "
+                      f"{'wide' if r_whole.tc == 0 else 'tiled'}) differs from the "
+                      f"live run's ({'wide' if r_live.tc == 0 else 'tiled'})")
+                pi, pd = plain[0][:b], plain[1][:b]
+                err = (gd - pd).abs().max().item()
+                if tier == "exact":
+                    check(torch.equal(gi, pi) and torch.equal(gd, pd),
+                          f"{name}: not bitwise the plain version")
+                else:
+                    tol = dist2_tol(qt[:b], ct[:m][pi.long()])
+                    check(bool(((gd - pd).abs() <= tol).all()),
+                          f"{name}: d2 beyond tolerance of the plain version ({err})")
+                    if m > 1:
+                        two = torch.topk(engine.pairwise_dist2(qt[:b], ct[:m], impl="ref"),
+                                         2, dim=1, largest=False).values
+                        unique = (two[:, 1] - two[:, 0]) > 2 * tol
+                        check(torch.equal(gi[unique], pi[unique]),
+                              f"{name}: index differs from the plain version where unique")
+                    else:
+                        check(torch.equal(gi, pi), f"{name}: index differs")
+                results.append(dict(kernel="assign", shape=(b, m, d, label), tier=tier,
+                                    err=err, ms=None, plain_ms=None, bound_ms=None,
+                                    bound_by=None, library_ms=None))
+            print(f"11a {label} {tier}: ok at query buckets "
+                  f"{[_pow2_at_least(b, 8) for b in SERVE_ROWS]} against {m} live "
+                  f"of {mcap}: bitwise the kernel on the live rows and on the "
+                  f"whole bucket, {'bitwise' if tier == 'exact' else 'within tolerance of'} "
+                  "the plain version", flush=True)
+    for label, r_live, r_whole in sorted(routes):
+        print(f"11a routes {label}: live rows -> {r_live}, whole bucket -> {r_whole}",
+              flush=True)
+    check(any(r[1] != r[2] for r in routes),
+          "11a: no shape put the live rows and the bucket on different routes")
+    # times: one row (bucket 8) and 256 rows against 11b's bucket (the wide
+    # kernel), 256 rows against 11c's (tiled)
+    sets = {s[0]: s for s in serve_sets(P, rng, boot, kdd)}
+    for b, label in ((8, "11b k=16 d=16"), (256, "11b k=16 d=16"),
+                     (256, "11c kddlike k=100 d=38")):
+        _, centers, queries, mcap = sets[label]
+        m, d = centers.shape
+        ct, live = serve_bucket(torch, centers, mcap)
+        qt = torch.from_numpy(queries(b)).cuda()
+        plan = assign_plan(b, m, d, sm_count(0))
+        ms = device_ms(torch, lambda: ops.assign_bucketed(qt, ct, live, impl="kernel"))
+        plain = device_ms(torch, lambda: ops.assign_bucketed(qt, ct, live, impl="ref"))
+        lib = device_ms(torch, lambda: torch.cdist(qt, ct[:m]).min(1))
+        b_ms, b_by = bound(4 * (b * d + m * d + 2 * b), b * m * (2 * d + 5) + 2 * d * (b + m))
+        print(f"11a times {label} n={b} k={m} (bucket {mcap}) d={d}: "
+              f"kernel_ms={ms:.5f} ({'wide' if plan.tc == 0 else 'tiled'}) "
+              f"plain_ms={plain:.5f} library_ms={lib:.5f} (torch.cdist(q, c).min(1)) "
+              f"bound_ms={b_ms:.7f} ({b_by})", flush=True)
+        results.append(dict(kernel="assign", shape=(b, m, d, "11a " + label), tier="float",
+                            err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=lib))
+    print(f"11a: assign_bucketed launched kernel #2 {launches} times (one a call)",
+          flush=True)
+    return {"assign": launches}
+
+
+def pcts_us(lats):
+    """(mean, p50, p95, p99) of latencies in seconds, in microseconds."""
+    a = np.asarray(lats, np.float64) * 1e6
+    return (float(a.mean()), float(np.percentile(a, 50)),
+            float(np.percentile(a, 95)), float(np.percentile(a, 99)))
+
+
+def closed_loop(svc, pools, seconds):
+    """``len(pools)`` client threads, each sending one row at a time from
+    its pool and waiting for the answer, for ``seconds``. Returns
+    ``(latencies s, qps, answers [(client, row, AssignResult)], errors)``."""
+    lats = [[] for _ in pools]
+    answers = [[] for _ in pools]
+    errors = []
+    gate = threading.Barrier(len(pools) + 1)
+    stop = threading.Event()
+
+    def client(i):
+        pool = pools[i]
+        gate.wait()
+        j = 0
+        try:
+            while not stop.is_set():
+                row = j % pool.shape[0]
+                t0 = time.monotonic()
+                res = svc.assign(pool[row:row + 1], timeout=60)
+                lats[i].append(time.monotonic() - t0)
+                answers[i].append((row, res))
+                j += 1
+        except Exception as e:  # noqa: BLE001 — reported and failed on below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(pools))]
+    for t in threads:
+        t.start()
+    gate.wait()
+    t0 = time.monotonic()
+    time.sleep(seconds)
+    stop.set()
+    for t in threads:
+        t.join(timeout=120)
+    wall = time.monotonic() - t0
+    check(not any(t.is_alive() for t in threads), "a client thread did not stop")
+    flat = [(i, row, res) for i, per in enumerate(answers) for row, res in per]
+    return [x for per in lats for x in per], len(flat) / wall, flat, errors
+
+
+def open_loop(svc, pool, rate, seconds):
+    """Tickets of one row each at ``rate`` a second for ``seconds``,
+    whatever the answers. Returns ``(latencies s, qps, answers, errors)``."""
+    period = 1.0 / rate
+    tickets = []
+    t0 = time.monotonic()
+    while True:
+        now = time.monotonic()
+        if now - t0 >= seconds:
+            break
+        target = t0 + len(tickets) * period
+        if now < target:
+            time.sleep(min(target - now, 0.001))
+            continue
+        row = len(tickets) % pool.shape[0]
+        tickets.append((row, svc.assign_async(pool[row:row + 1])))
+    answers, errors = [], []
+    for row, t in tickets:
+        try:
+            answers.append((0, row, t.result(timeout=60)))
+        except Exception as e:  # noqa: BLE001 — reported and failed on below
+            errors.append(repr(e))
+    wall = time.monotonic() - t0
+    lats = [t.t_done - t.t_submit for _, t in tickets]
+    return lats, len(tickets) / wall, answers, errors
+
+
+def check_answers(torch, engine, svc, pools, answers, name):
+    """Every answer bitwise the kernel's offline assign on the centers of
+    its epoch: the answered rows of each epoch in one launch. Returns the
+    epochs seen."""
+    by_epoch = {}
+    for i, row, res in answers:
+        by_epoch.setdefault(res.epoch, []).append((i, row, res))
+    for epoch, got in by_epoch.items():
+        q = np.stack([pools[i][row] for i, row, _ in got])
+        c = torch.from_numpy(svc.snapshot_at(epoch)).cuda()
+        want_i, want_d = engine.assign_nearest(torch.from_numpy(q).cuda(), c,
+                                               impl="kernel")
+        gi = np.array([res.idx[0] for _, _, res in got], np.int32)
+        gd = np.array([res.d2[0] for _, _, res in got], np.float32)
+        check(np.array_equal(gi, want_i.cpu().numpy())
+              and np.array_equal(gd, want_d.cpu().numpy()),
+              f"{name}: an answer of epoch {epoch} is not bitwise the offline "
+              "kernel assign on its centers")
+    return sorted(by_epoch)
+
+
+def serve_run(torch, engine, svc, pools, name, drive):
+    """One load run: ``drive()`` -> (latencies, qps, answers, errors);
+    prints the run's line and returns its QPS."""
+    from repro_torch.serve import kcenter
+    st0 = svc.stats
+    with HostClock(kcenter.KCenterService, ("_upload", "_launch", "_read")) as clock:
+        lats, qps, answers, errors = drive()
+    st = svc.stats
+    check(not errors, f"{name}: {len(errors)} tickets failed: {errors[:3]}")
+    mean, p50, p95, p99 = pcts_us(lats)
+    check(np.isfinite(p99), f"{name}: p99 not finite")
+    epochs = check_answers(torch, engine, svc, pools, answers, name)
+    dispatches = st["batches"] - st0["batches"]
+    rows = st["batched_rows"] - st0["batched_rows"]
+    per = {k: clock.ms.get(k, 0.0) * 1e3 / max(dispatches, 1)
+           for k in ("_upload", "_launch", "_read")}
+    print(f"{name}: ok qps={qps:.1f} latency_us mean={mean:.1f} p50={p50:.1f} "
+          f"p95={p95:.1f} p99={p99:.1f} answers={len(answers)} "
+          f"dispatches={dispatches} mean_batch={rows / max(dispatches, 1):.2f} "
+          f"epochs={st['epochs'] - st0['epochs']} "
+          f"cache_refreshes={st['cache_refreshes'] - st0['cache_refreshes']} "
+          f"bucket_growths={st['bucket_growths'] - st0['bucket_growths']} "
+          f"answer_epochs={epochs[:8]}{'...' if len(epochs) > 8 else ''} "
+          f"host_us_per_dispatch(pad+upload={per['_upload']:.2f} "
+          f"launch={per['_launch']:.2f} read={per['_read']:.2f}; clock on) "
+          "every answer bitwise the kernel assign on its epoch's centers",
+          flush=True)
+    return qps
+
+
+def serve_syncs(torch, svc, pool):
+    """Synchronising calls over single-row dispatches, one at a time, and
+    a 300-row request (two slices of max_batch 256): one a slice. Only
+    the dispatch thread is at work, so the warnings it raises are
+    recorded without a race."""
+    # control: a warning raised in another thread is recorded here
+    probe = torch.ones(4).cuda()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        t = threading.Thread(target=lambda: probe.sum().item())
+        t.start()
+        t.join(timeout=60)
+        torch.cuda.set_sync_debug_mode(0)
+    check(len(sync_warnings(caught)) == 1, "sync detection control (thread) failed")
+    slices = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        for row in range(pool.shape[0]):
+            svc.assign(pool[row:row + 1], timeout=60)
+            slices += 1
+        svc.assign(np.concatenate([pool] * 19)[:300], timeout=60)
+        slices += 2
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = sync_warnings(caught)
+    report_syncs(syncs[:2])
+    check(len(syncs) == slices, f"{len(syncs)} synchronising calls for {slices} "
+          "dispatch slices (expected one a slice)")
+    return len(syncs), slices
+
+
+def phase_serve(torch, engine, P, counters, kdd_sketch, kdd_src):
+    from repro_torch.serve import KCenterService
+    print(f"== phase 11b: KCenterService at benchmarks/serve_bench.py's "
+          f"configuration (k={SERVE_K}, d={SERVE_D}, bootstrap gau {SERVE_BOOT}, "
+          f"{SERVE_CLIENTS} closed-loop clients of one row, {SERVE_SECONDS} s a run)",
+          flush=True)
+    # held-out rows: the bootstrap's clusters (gau draws its cluster
+    # centers first, from the seed), other draws around them
+    pools = list(P.gau(SERVE_CLIENTS * SERVE_POOL, SERVE_K, d=SERVE_D, seed=1)
+                 .reshape(SERVE_CLIENTS, SERVE_POOL, SERVE_D))
+
+    def boot(**kw):
+        svc = KCenterService(SERVE_K, SERVE_D, snapshot_history=True, **kw)
+        svc.submit_points(P.gau(SERVE_BOOT, SERVE_K, d=SERVE_D, seed=1))
+        svc.drain(timeout=120)
+        for b in (1, 16, 32, 64, 128, 256):      # every query bucket
+            svc.assign(np.concatenate(pools)[:b], timeout=60)
+        return svc
+
+    with boot() as svc:
+        epoch, centers, _ = svc.snapshot()
+        syncs, slices = serve_syncs(torch, svc, pools[0])
+        print(f"11b syncs: {syncs} synchronising calls over {slices} dispatch "
+              f"slices; live centers {centers.shape[0]}", flush=True)
+        qps_b = serve_run(torch, engine, svc, pools, "11b batched",
+                          lambda: closed_loop(svc, pools, SERVE_SECONDS))
+    with boot(batching=False) as svc:
+        qps_u = serve_run(torch, engine, svc, pools, "11b unbatched",
+                          lambda: closed_loop(svc, pools, SERVE_SECONDS))
+    print(f"11b batched/unbatched qps ratio={qps_b / qps_u:.3f} (reported, not gated)",
+          flush=True)
+    with boot() as svc:
+        feed_pool = P.gau(16_384, SERVE_K, d=SERVE_D, seed=1)
+        stop = threading.Event()
+
+        def feeder():
+            off = 0
+            while not stop.is_set():
+                svc.submit_points(feed_pool[off:off + SERVE_FEED_ROWS])
+                off = (off + SERVE_FEED_ROWS) % (feed_pool.shape[0] - SERVE_FEED_ROWS)
+                time.sleep(SERVE_FEED_EVERY_S)
+
+        def drive():
+            feed = threading.Thread(target=feeder, daemon=True)
+            feed.start()
+            try:
+                return closed_loop(svc, pools, SERVE_SECONDS)
+            finally:
+                stop.set()
+                feed.join(timeout=60)
+                svc.drain(timeout=120)
+
+        serve_run(torch, engine, svc, pools, "11b live ingest (512 rows every 2 ms)",
+                  drive)
+    with boot() as svc:
+        rate = max(0.3 * qps_b, 100.0)
+        serve_run(torch, engine, svc, [pools[0]], f"11b open loop at {rate:.0f}/s",
+                  lambda: open_loop(svc, pools[0], rate, SERVE_SECONDS))
+
+    print("== phase 11c: KCenterService at the sketch's kddlike configuration "
+          "(phase 8's source, k=100, d=38)", flush=True)
+    from repro_torch.core.streaming import stream_update
+    totals = {name: 0 for name in counters}
+    with KCenterService(100, 38, snapshot_history=True) as svc:
+        passes = stream_update.coverage_passes
+
+        def ingest():
+            svc.submit_points(kdd_src)
+            svc.drain(timeout=600)
+        t0 = time.perf_counter()
+        _, launches, _, _, _ = counted_run(torch, ingest, counters)
+        wall = (time.perf_counter() - t0) * 1e3
+        passes = stream_update.coverage_passes - passes
+        epoch, centers, r = svc.snapshot()
+        check(launches["assign"] == passes and launches["pairwise"] == 1,
+              f"11c ingest: {launches} launches for {passes} coverage passes")
+        check(r == kdd_sketch.r and np.array_equal(
+            centers, kdd_sketch.centers[:kdd_sketch.count]),
+            "11c: the service's sketch differs from phase 8's stream_update")
+        for name, v in launches.items():
+            totals[name] += v
+        print(f"11c ingest: ok count={centers.shape[0]} r={r!r} epochs={svc.stats['epochs']} "
+              f"coverage_passes={passes} launches={launches} wall_ms={wall:.3f}; "
+              "snapshot bitwise phase 8's host-tail sketch", flush=True)
+        kpools = list(P.kddlike(SERVE_CLIENTS * SERVE_POOL, seed=1)
+                      .reshape(SERVE_CLIENTS, SERVE_POOL, 38))
+        for b in (1, 16, 32, 64, 128, 256):
+            svc.assign(np.concatenate(kpools)[:b], timeout=60)
+        serve_run(torch, engine, svc, kpools, "11c no ingest",
+                  lambda: closed_loop(svc, kpools, SERVE_SECONDS))
+        stop = threading.Event()
+        rounds = []
+
+        def reingest():
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                svc.submit_points(kdd_src)
+                svc.drain(timeout=600)
+                rounds.append(time.perf_counter() - t0)
+
+        def drive():
+            feed = threading.Thread(target=reingest, daemon=True)
+            feed.start()
+            try:
+                return closed_loop(svc, kpools, SERVE_SECONDS)
+            finally:
+                stop.set()
+                feed.join(timeout=600)
+        serve_run(torch, engine, svc, kpools, "11c while the source is ingested again",
+                  drive)
+        print(f"11c re-ingest: {len(rounds)} passes over the source, "
+              f"{[round(s, 3) for s in rounds]} s each", flush=True)
+    return totals
+
+
 def digest(*tensors) -> str:
     """SHA-1 of the tensors' bytes, in order: equal digests, bitwise equal
     results."""
@@ -2753,6 +3205,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
     from repro_torch.core import mrg
     from repro_torch.data import pointsets as P
+    from repro_torch.data.source import HostSource
     from repro_torch.kernels import _build, engine
     from repro_torch.kernels.assign import (assign_nearest_batched_cuda,
                                             assign_nearest_cuda, assign_sums_cuda)
@@ -2819,11 +3272,15 @@ def main() -> int:
                     assign_batched=assign_nearest_batched_cuda,
                     pairwise=pairwise_dist2_cuda)
     weighted_totals = phase_weighted(torch, engine, P, rng, counters)
-    sketch_totals = phase_sketch(torch, P, counters)
+    sketch_totals, sketch_states = phase_sketch(torch, P, counters)
     phase_kz_profile(torch, P, rng)
     phase_sketch_profile(torch, P)
     eim_totals = phase_eim(torch, engine, P, counters, alike)
     phase_eim_profile(torch, P)
+    kdd_sketch = sketch_states[("kddlike n=4e6 d=38 host", "host")]
+    serve_totals = phase_serve_shapes(torch, engine, P, rng, results, kdd_sketch)
+    serve_ingest_totals = phase_serve(torch, engine, P, counters, kdd_sketch,
+                                      HostSource(kdd_host(P)))
 
     # times at each path's first shape on float inputs — in memory: GON step
     # m=50, per=20000, d=2; assign n=1e6, k=25, d=2 (paper Fig. 4); streamed:
@@ -2833,8 +3290,9 @@ def main() -> int:
     # the batched assign at m=50, per=20000, t=125, d=2, the sums entry at
     # phase 9's round 1 (1 x 573,580 rows, t=125, d=38), pairwise at the
     # sketch's (101, 101, 38) bootstrap in f32. Launches: every launch of the
-    # kernel's wrapper in the counted runs of phases 3, 5, 7, 8 and 10, each
-    # counted once, by the wrapper that made it (the streamed and batched
+    # kernel's wrapper in the counted runs of phases 3, 5, 7, 8 and 10, and
+    # phase 11's deterministic ones (11a's assign_bucketed calls, 11c's
+    # ingest), each counted once, by the wrapper that made it (the streamed and batched
     # assign's cluster sums take the sums entry: assign_sums, not
     # fused_assign or assign_batched). max_abs_err over every check of the
     # kernel.
@@ -2868,7 +3326,8 @@ def main() -> int:
         main = next(r for r in mine if r["shape"] == shape and r["tier"] == "float")
         launches = sum(t.get(name, 0) for t in (totals, stream_totals,
                                                 weighted_totals, sketch_totals,
-                                                eim_totals))
+                                                eim_totals, serve_totals,
+                                                serve_ingest_totals))
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": max(r["err"] for r in mine),

@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -91,14 +92,32 @@ def build(names=SOURCES) -> dict[str, str]:
     return reports
 
 
+# First uses from several threads (the online service's ingest and dispatch
+# threads) build one after another: a build's temporary file is named by
+# the process alone.
+_build_lock = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    build((name,))
+    with _build_lock:
+        build((name,))
     lib = ctypes.CDLL(str(library_path(name)))
     lib.repro_error_string.argtypes = [ctypes.c_int]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, the launch count of a kernel's
+    wrapper, under a lock, so the count is exact when several threads
+    launch (the online service's two)."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -188,7 +188,7 @@ def assign_sums_cuda(x: torch.Tensor, c: torch.Tensor, sums: torch.Tensor,
         int(plan.bins), plan.tc, plan.sub, plan.chunk, plan.grid_x, plan.smem,
         dev.index, _stream(dev))
     _build.check(lib, code, "assign_sums")
-    assign_sums_cuda.launches += 1
+    _build.count_launch(assign_sums_cuda)
     return sums
 
 
@@ -223,7 +223,7 @@ def assign_nearest_cuda(x: torch.Tensor, c: torch.Tensor):
     if x.dim() != 2:
         raise ValueError(f"x must be (n, d), got {tuple(x.shape)}")
     out = assign_outputs(x, c, batched=False, what="assign_nearest")
-    assign_nearest_cuda.launches += 1
+    _build.count_launch(assign_nearest_cuda)
     return out
 
 
@@ -239,7 +239,7 @@ def assign_nearest_batched_cuda(x: torch.Tensor, c: torch.Tensor):
     if x.dim() != 3:
         raise ValueError(f"x must be (m, per, d), got {tuple(x.shape)}")
     out = assign_outputs(x, c, batched=True, what="assign_nearest_batched")
-    assign_nearest_batched_cuda.launches += 1
+    _build.count_launch(assign_nearest_batched_cuda)
     return out
 
 

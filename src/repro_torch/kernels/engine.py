@@ -114,8 +114,9 @@ def _blocks(a: torch.Tensor, chunk: int, fill: float):
 def _chunk_of(x, c, chunk, memory_budget):
     """``resolve_chunk`` for rows ``x (..., n, d)`` against ``c (..., m,
     d)``: ``None`` where one chunk holds every row. A chunk holds two rows
-    at least: PyTorch takes a one-row product to its matrix-vector routine,
-    which rounds otherwise than the matrix product of the unchunked pass."""
+    at least: on the card the plain distances are one matrix product, and
+    PyTorch takes a one-row product to its matrix-vector routine, which
+    rounds otherwise than the matrix product of the unchunked pass."""
     n, d, m = x.shape[-2], x.shape[-1], c.shape[-2]
     rows = resolve_chunk(n, m, d, chunk=chunk, memory_budget=memory_budget)
     return None if rows is None or rows >= n else max(rows, 2)
@@ -220,6 +221,65 @@ def assign_nearest(x, c, *, impl: str = "auto", chunk: int | None = None,
     if rows is None:
         return ref.assign_nearest(x, c)
     return _assign_chunked(x, c, rows)
+
+
+# Coordinate-space far sentinel of invalid center rows: a row at 1e18 in
+# every coordinate lies ~1e36·d away from any point, so it never wins a
+# nearest reduction (the JAX engine's ``_FAR_CENTER``).
+_FAR_CENTER = 1e18
+
+
+def _host_mask(cmask, rows: int) -> np.ndarray:
+    """``cmask`` (numpy or a CPU tensor, 0/1 or bool) as a host bool array
+    of ``rows`` entries. A device mask raises: reading it would make every
+    call a synchronising one."""
+    if isinstance(cmask, torch.Tensor):
+        if cmask.device.type != "cpu":
+            raise ValueError(
+                f"cmask must lie on the host (a numpy array or a CPU tensor), "
+                f"got one on {cmask.device}: reading it would synchronise "
+                "every call")
+        cmask = cmask.numpy()
+    live = np.asarray(cmask) > 0
+    if live.shape != (rows,):
+        raise ValueError(f"cmask must have shape ({rows},) to match the center "
+                         f"bucket, got {live.shape}")
+    return live
+
+
+def assign_bucketed(q, c, cmask, *, impl: str = "auto",
+                    chunk: int | None = None):
+    """Nearest-center assignment against a bucketed center set: the online
+    service's query op (``repro_torch/serve/kcenter.py``).
+
+    ``c (m_cap, d)`` is a fixed bucket holding the live centers that
+    ``cmask (m_cap,)`` marks (0/1 or bool, on the host: numpy or a CPU
+    tensor); ``q`` is a padded query block. Returns ``(idx (n,) int32, d2
+    (n,))``, ``idx`` a row of the bucket. Rows the mask marks invalid never
+    win. Where the ``m`` live rows lead the bucket (the service's layout),
+    the result of every query row is bitwise ``assign_nearest(q[:b],
+    c[:m])``: on the kernel route, and on the plain route on the CPU, a
+    row's result does not depend on the padding rows.
+
+    The live count is read from the host mask, so a call adds no
+    synchronising read. Where the live rows form one run ``[lo, lo + m)``
+    (a prefix, or a single center), the assign runs on that view, one
+    launch on the card, planned on the live count (so the route of
+    ``assign.assign_plan`` is the one the offline call takes) and ``lo`` is
+    added back; a single center thereby runs on its true one-row set, as
+    the JAX engine special-cases it. Otherwise the invalid rows are pushed
+    to ``_FAR_CENTER``, as the JAX engine does on every call."""
+    live = _host_mask(cmask, c.shape[0])
+    rows = np.flatnonzero(live)
+    if rows.size == 0:
+        raise ValueError("cmask marks no live center")
+    lo, m = int(rows[0]), int(rows.size)
+    if int(rows[-1]) - lo + 1 == m:
+        idx, d2 = assign_nearest(q, c[lo:lo + m], impl=impl, chunk=chunk)
+        return (idx + lo if lo else idx), d2
+    keep = upload(live, c.device)
+    c = torch.where(keep[:, None], c, _FAR_CENTER)
+    return assign_nearest(q, c, impl=impl, chunk=chunk)
 
 
 def assign_nearest_batched(x, c, *, impl: str = "auto"):

@@ -223,7 +223,7 @@ def fused_min_argmax_cuda(x: torch.Tensor, c: torch.Tensor, md: torch.Tensor,
     code = lib.repro_gon_step(ctypes.byref(a), dev.index,
                               torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, "gon_step")
-    fused_min_argmax_cuda.launches += 1
+    _build.count_launch(fused_min_argmax_cuda)
     return md, ws.far_v, ws.far_i
 
 

@@ -267,7 +267,7 @@ def fused_filter_cuda(x: torch.Tensor, c: torch.Tensor, ds=None, hm=None, *,
     ``hm (n,)`` bool or ``None`` (every row a candidate); any ``rank >=
     1``. Returns ``(ds, tops (ceil(n / 256), rank))``."""
     out = _filter_launch("repro_fused_filter", x, c, ds, hm, None, rank)
-    fused_filter_cuda.launches += 1
+    _build.count_launch(fused_filter_cuda)
     return out
 
 
@@ -283,7 +283,7 @@ def fused_filter_w_cuda(x: torch.Tensor, c: torch.Tensor, ds=None, hm=None,
     if w is None:
         raise ValueError("the weighted filter needs w")
     out = _filter_launch("repro_fused_filter_w", x, c, ds, hm, w, rank)
-    fused_filter_w_cuda.launches += 1
+    _build.count_launch(fused_filter_w_cuda)
     return out
 
 
@@ -297,7 +297,7 @@ def fused_assign_cuda(x: torch.Tensor, c: torch.Tensor):
     if x.dim() != 2:
         raise ValueError(f"x must be (n, d), got {tuple(x.shape)}")
     out = assign_outputs(x, c, batched=False, what="fused_assign")
-    fused_assign_cuda.launches += 1
+    _build.count_launch(fused_assign_cuda)
     return out
 
 
@@ -340,7 +340,7 @@ def fused_argmin_cuda(x: torch.Tensor, c: torch.Tensor, carry: torch.Tensor,
         plan.sub, plan.grid_x, plan.smem, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, "argmin_rows")
-    fused_argmin_cuda.launches += 1
+    _build.count_launch(fused_argmin_cuda)
     return carry
 
 

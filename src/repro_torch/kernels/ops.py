@@ -10,6 +10,7 @@ fused_min_argmax = engine.fused_min_argmax
 gon_workspace = engine.gon_workspace
 assign_nearest = engine.assign_nearest
 assign_nearest_batched = engine.assign_nearest_batched
+assign_bucketed = engine.assign_bucketed
 assign_sums = engine.assign_sums
 argmin_dist2_over_rows = engine.argmin_dist2_over_rows
 fused_filter = engine.fused_filter

@@ -162,7 +162,7 @@ def pairwise_dist2_cuda(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         plan.tiles, plan.grid, plan.smem, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, "pairwise_dist2")
-    pairwise_dist2_cuda.launches += 1
+    _build.count_launch(pairwise_dist2_cuda)
     return out
 
 

@@ -4,7 +4,9 @@ These are the semantics contracts of the port, as ``repro.kernels.ref`` is
 for the JAX package: each CUDA kernel is held against them on the card, and
 they run whenever a tensor lies on the CPU. Their arithmetic follows the
 JAX oracles operation by operation, so on the CPU they agree with them
-bitwise on exact-arithmetic inputs (and at d = 2 on any input).
+bitwise on exact-arithmetic inputs. On the CPU the clamped decomposition
+is computed pair by pair (``_per_pair_dist2``), so a row's distances do not
+depend on the other rows and centers of the call.
 
 All distances are *squared* Euclidean; indices are int32.
 """
@@ -31,7 +33,10 @@ def dist2_to_center(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 def pairwise_dist2(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Squared distances ``(..., n, m)`` between rows of ``x (..., n, d)``
     and ``c (..., m, d)`` by the clamped decomposition ``|x|^2 + |c|^2 -
-    2 x.c^T`` (leading axes are machines, matched pairwise)."""
+    2 x.c^T`` (leading axes are machines, matched pairwise): pair by pair
+    on the CPU, one matrix product on the card."""
+    if not x.is_cuda:
+        return _per_pair_dist2(x, c)
     xn = (x * x).sum(-1, keepdim=True)                       # (..., n, 1)
     cn = (c * c).sum(-1, keepdim=True).transpose(-1, -2)     # (..., 1, m)
     d2 = xn + cn - 2.0 * (x @ c.transpose(-1, -2))
@@ -90,10 +95,35 @@ def gon_write(x: torch.Tensor, md: torch.Tensor, val: torch.Tensor,
     return md, val, idx.to(torch.int32)
 
 
+def _per_pair_dist2(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``pairwise_dist2`` with each entry computed from its row and center
+    alone, in the order of the CUDA kernels' ``csrc/dist2.cuh``: the norms
+    summed in j order, the dot product a chain of ``addcmul_`` in j order
+    from 0, then ``max((|x|^2 + |c|^2) - 2 x.c, 0)``. A matrix product on
+    the CPU rounds as the BLAS kernel that its shape selects (a
+    matrix-vector routine at one row or one center, others at few
+    centers), so a row's distances would depend on how many rows and
+    centers share the call: a served query would round otherwise alone
+    than coalesced with others."""
+    xn = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    cn = torch.zeros(c.shape[:-1], dtype=c.dtype, device=c.device)
+    dot = torch.zeros(x.shape[:-1] + c.shape[-2:-1], dtype=x.dtype,
+                      device=x.device)
+    for j in range(x.shape[-1]):
+        xj, cj = x[..., j], c[..., j]
+        xn = xn + xj * xj
+        cn = cn + cj * cj
+        dot.addcmul_(xj.unsqueeze(-1), cj.unsqueeze(-2))
+    return torch.clamp_min(xn.unsqueeze(-1) + cn.unsqueeze(-2) - 2.0 * dot, 0.0)
+
+
 def assign_nearest(x: torch.Tensor, c: torch.Tensor):
     """Nearest center of every row: ``(idx (n,) int32, d2 (n,))``, first
     occurrence on ties. Batched, ``x (m, per, d)`` against each machine's
-    own centers ``c (m, k, d)`` gives ``(m, per)`` results."""
+    own centers ``c (m, k, d)`` gives ``(m, per)`` results. On the CPU a
+    row's result is bitwise the same whatever other rows share the call
+    (padded and coalesced query batches, row chunks), as the CUDA kernel's
+    is on the card."""
     d2 = pairwise_dist2(x, c)
     idx = torch.argmin(d2, dim=-1)
     return idx.to(torch.int32), d2.gather(-1, idx.unsqueeze(-1)).squeeze(-1)
