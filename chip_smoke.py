@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of MRG (paper Algorithm 1), coreset
 selection, the weighted and outlier objectives, the streaming sketch, EIM
-(paper §4) and the online k-center service on one GPU, in memory and out
-of core.
+(paper §4), the online k-center service and the paper's machines as mesh
+shards on one GPU, in memory and out of core.
 
     python3 chip_smoke.py        # from the root of a checkout, one Hopper card
 
@@ -133,6 +133,27 @@ Phases, each of which raises on failure (nothing is caught):
               ``submit_points`` (its sketch bitwise phase 8's), then the
               closed loop on held-out kddlike rows with no ingest and while
               the source is ingested again.
+  12. the mesh (``MeshExecutor``, ``mrg_distributed``, ``ShardedSource``;
+              every shard on the one card), each run with its wall after
+              a warm-up (none for EIM), synchronising calls and launches:
+              12a the fused path over a (50,) mesh, the paper's m = 50 as
+              shards (unif n = 1e6, k = 25; kddlike n = 400,000, k = 100):
+              rounds 2, 2k GON launches and one assign, bitwise
+              SimExecutor(m=50), radius2 within rtol 1e-4 of impl="ref"
+              and bitwise it on an exact-tier input of the same shape,
+              the radius at most 4x GON's; 12b hierarchical over (2, 5, 5)
+              (kddlike): rounds 4, 4k GON launches, at most 8x GON's
+              radius; 12c the streamed path, shard_source of phase 5's
+              unif generator (S = 8, 64 MiB a shard) and kddlike n = 4e6
+              (S = 4, 256 MiB a shard): bitwise HostStreamExecutor over the
+              same shards at the same block_rows, k x (steps + levels) GON
+              launches (one batch of the S blocks a step), no synchronising
+              call, peak device memory within S budgets + 2 unions + 16
+              MiB; 12d over 4 shards at 256 MiB a shard: weighted mrg and
+              kz_center (z = 100) on phase 7's kind of weighted kddlike,
+              eim on kddlike n = 4e6 (key 1), each bitwise
+              HostStreamExecutor's, and select_coreset(mesh=) on kddlike
+              n = 400,000, k = 100 against impl="ref".
 
 Prints the card's name and power limit, one JSON line describing every
 kernel, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -3016,6 +3037,225 @@ def phase_serve(torch, engine, P, counters, kdd_sketch, kdd_src):
     return totals
 
 
+# Phase 12: the mesh. 12a the fused path over the paper's m = 50 machines
+# as a (50,) mesh, 12b hierarchical over (2, 5, 5); 12c the streamed path
+# over phase 5's sources, S shards at a per-shard budget; 12d phase 7's
+# objectives and phase 10's streamed EIM over 4 shards, and
+# select_coreset(mesh=) on phase 7's in-memory input.
+MESH_FUSED = [("12a", "unif", 1_000_000, 2, 25, (50,), ("data",), False),
+              ("12a", "kddlike", 400_000, 38, 100, (50,), ("data",), False),
+              ("12b", "kddlike", 400_000, 38, 100, (2, 5, 5),
+               ("pod", "data", "model"), True)]    # axes: the mesh's, all sharded
+MESH_STREAMED = [("unif", 10_000_000, 8, 64 * MiB, 25),    # phase 5's sources
+                 ("kddlike", 4_000_000, 4, 256 * MiB, 25)]
+MESH_SHARDS = 4                      # 12d's mesh
+MESH_BUDGET = 256 * MiB              # 12d's per-shard budget
+MESH_CORESET = (400_000, 100)        # 12d's select_coreset(mesh=): n, k
+
+
+def mesh_run(torch, fn, counters, warm=True):
+    """``fn`` once as a warm-up (where ``warm``), then counted and timed
+    (``counted_run``, host clock around it, as phase 10 times its runs).
+    Returns ``(result, launches, syncs, blocks uploaded, peak bytes, wall
+    ms)``."""
+    if warm:
+        fn()
+    t0 = time.perf_counter()
+    res, launches, syncs, blocks, peak = counted_run(torch, fn, counters)
+    wall = (time.perf_counter() - t0) * 1e3
+    report_syncs(syncs)
+    return res, launches, syncs, blocks, peak, wall
+
+
+def same_mrg(a, b) -> bool:
+    return (torch_equal(a.centers, b.centers)
+            and a.radius2.item() == b.radius2.item() and a.rounds == b.rounds)
+
+
+def phase_mesh(torch, engine, P, counters):
+    print("== phase 12: the mesh (MeshExecutor, mrg_distributed, ShardedSource) "
+          "on the card, impl='auto' against impl='ref' and HostStreamExecutor",
+          flush=True)
+    from repro_torch.core import (HostStreamExecutor, MeshExecutor, Objective,
+                                  eim, gonzalez, kz_center, mrg, mrg_distributed,
+                                  select_coreset)
+    from repro_torch.data.source import (HostSource, WeightedSource, shard_source,
+                                         synthetic_source)
+    from repro_torch.launch import make_mesh
+    totals = {name: 0 for name in counters}
+
+    def tally(label, launches, path):
+        for name in path:
+            check(launches[name] > 0, f"{label}: kernel {name} never launched")
+        for name, c in launches.items():
+            totals[name] += c
+
+    # -- 12a, 12b: the fused path --------------------------------------------
+    for tag, gen, n, d, k, shape, axes, hier in MESH_FUSED:
+        mesh = make_mesh(shape, axes)
+        ex = MeshExecutor(mesh, shard_axes=axes, hierarchical=hier)
+        x = P.GENERATORS[gen](n, d=d, seed=0)
+        xt = cuda_t(torch, x)
+
+        def fn(impl="auto", pts=xt):
+            return mrg(pts, k, executor=ex, impl=impl)
+        label = (f"{tag} mrg {gen} n={n} d={d} k={k} mesh={dict(mesh.shape)} "
+                 f"shard_axes={axes} hierarchical={hier}")
+        res, launches, syncs, _, _, wall = mesh_run(torch, fn, counters)
+        check(not syncs, f"{label}: {len(syncs)} synchronising calls")
+        levels = len(axes) if hier else 1
+        check(res.rounds == 1 + levels, f"{label}: rounds {res.rounds}")
+        check(launches["gon_step"] == k * (1 + levels) and launches["assign"] == 1,
+              f"{label}: launches {launches} (expected {k * (1 + levels)} GON "
+              "steps and one assign)")
+        tally(label, launches, ("gon_step", "assign"))
+        c, r2w = mrg_distributed(xt, k, mesh, shard_axes=axes, hierarchical=hier)
+        check(torch.equal(c, res.centers) and r2w.item() == res.radius2.item(),
+              f"{label}: mrg_distributed differs from MeshExecutor.mrg")
+        ref = fn("ref")
+        r2, r2_ref = res.radius2.item(), ref.radius2.item()
+        check(np.isfinite(r2) and abs(r2 - r2_ref) <= 1e-4 * abs(r2_ref)
+              and ref.rounds == res.rounds,
+              f"{label}: radius2 {r2} vs ref {r2_ref} beyond rtol 1e-4")
+        ratio = (r2 / gonzalez(xt, k).radius2.item()) ** 0.5
+        check(ratio <= (8.0 if hier else 4.0), f"{label}: radius over GON's {ratio}")
+        note = ""
+        if not hier:      # the paper's m machines: SimExecutor(m) bitwise
+            sim = mrg(xt, k, m=shape[0], capacity=shape[0] * k)
+            check(same_mrg(res, sim), f"{label}: differs from SimExecutor(m={shape[0]})")
+            note = f"sim_m{shape[0]}_bitwise=True "
+        xe = cuda_t(torch, on_grid(x))
+        check(same_mrg(fn(pts=xe), fn("ref", pts=xe)),
+              f"{label}: the exact tier differs from impl='ref'")
+        print(f"{label}: ok {note}exact_tier_bitwise_ref=True rounds={res.rounds} "
+              f"radius2={r2!r} ref_radius2={r2_ref!r} radius_over_gon={ratio:.6f} "
+              f"centers_differing_from_ref="
+              f"{int((res.centers != ref.centers).any(dim=1).sum())} "
+              f"wall_ms={wall:.3f} launches={launches} sync_warnings={len(syncs)}",
+              flush=True)
+        del xt, xe
+
+    # -- 12c: the streamed path, bitwise HostStreamExecutor ------------------
+    for gen, n, S, budget, k in MESH_STREAMED:
+        src = (synthetic_source("unif", n, d=2, seed=0) if gen == "unif"
+               else HostSource(kdd_host(P)))
+        label = (f"12c mrg {gen} n={src.n} d={src.d} "
+                 f"{'synthetic' if gen == 'unif' else 'host'}")
+        ex = MeshExecutor(make_mesh((S,), ("data",)), memory_budget=budget)
+        sh = shard_source(src, S)
+        rows = ex.rows_for(sh)
+
+        def fn(impl="auto"):
+            return mrg(sh, k, executor=ex, impl=impl)
+        res, launches, syncs, blocks, peak, wall = mesh_run(torch, fn, counters)
+        label = f"{label} S={S} shard rows={rows}"
+        check(not syncs, f"{label}: {len(syncs)} synchronising calls")
+        steps = -(-sh.max_shard_rows // rows)
+        gon_want = k * (steps + res.rounds - 1)
+        check(launches["gon_step"] == gon_want,
+              f"{label}: {launches['gon_step']} GON launches, not k x (steps + "
+              f"levels) = {gon_want}")
+        tally(label, launches, ("gon_step", "fused_filter"))
+        union = S * steps * k
+        allowed = S * budget + 2 * union * (4 * src.d + 1) + PEAK_SLACK
+        check(peak <= allowed, f"{label}: peak device memory {peak} bytes above "
+              f"the allowed {allowed}")
+        host = mrg(sh, k, executor=HostStreamExecutor(block_rows=rows))
+        check(same_mrg(res, host), f"{label}: differs from HostStreamExecutor "
+              f"at block_rows={rows}")
+        ref = fn("ref")
+        r2, r2_ref = res.radius2.item(), ref.radius2.item()
+        check(torch.equal(res.centers, ref.centers) and res.rounds == ref.rounds
+              and abs(r2 - r2_ref) <= 1e-4 * abs(r2_ref),
+              f"{label}: differs from impl='ref' (radius2 {r2} vs {r2_ref})")
+        print(f"{label}: ok host_stream_bitwise=True rounds={res.rounds} steps={steps} "
+              f"radius2={r2!r} ref_radius2={r2_ref!r} wall_ms={wall:.3f} "
+              f"launches={launches} sync_warnings={len(syncs)} "
+              f"blocks_streamed={blocks} peak_MiB={peak / MiB:.2f} "
+              f"allowed_MiB={allowed / MiB:.2f} budget_MiB_per_shard={budget / MiB}",
+              flush=True)
+
+    # -- 12d: the objectives, EIM and select_coreset on the mesh ------------
+    mesh4 = make_mesh((MESH_SHARDS,), ("data",))
+    ex = MeshExecutor(mesh4, memory_budget=MESH_BUDGET)
+    xk, wk = planted_kdd(P, np.random.default_rng(12))
+    shw = shard_source(WeightedSource(HostSource(xk), wk), MESH_SHARDS)
+    rows = ex.rows_for(shw)
+    host_ex = HostStreamExecutor(block_rows=rows)
+    obj = Objective(weighted=True)
+    for kind in ("weighted mrg", "kz_center"):
+        if kind == "kz_center":
+            def fn(e=ex):
+                return kz_center(shw, 25, KZ_Z, executor=e)
+            want_syncs, path = 1, ("gon_step", "assign_sums", "fused_filter_w")
+        else:
+            def fn(e=ex):
+                return mrg(shw, 25, executor=e, objective=obj)
+            want_syncs, path = 0, ("gon_step", "assign_sums", "fused_filter_w")
+        label = (f"12d {kind} kddlike n={shw.n} d={shw.d} weighted, {KZ_Z} planted "
+                 "outliers, "
+                 f"S={MESH_SHARDS} at {MESH_BUDGET // MiB} MiB a shard, k=25")
+        res, launches, syncs, blocks, peak, wall = mesh_run(torch, fn, counters)
+        check(len(syncs) == want_syncs, f"{label}: {len(syncs)} synchronising calls")
+        tally(label, launches, path)
+        host = fn(host_ex)
+        if kind == "kz_center":
+            same = (torch.equal(res.centers, host.centers)
+                    and res.radius2.item() == host.radius2.item()
+                    and (res.coreset_size, res.rounds)
+                    == (host.coreset_size, host.rounds))
+            note = f"coreset_size={res.coreset_size} z={KZ_Z}"
+        else:
+            same = same_mrg(res, host) and torch.equal(res.weights, host.weights)
+            note = f"weights_sum={res.weights.sum().item()!r}"
+        check(same, f"{label}: differs from HostStreamExecutor at block_rows={rows}")
+        print(f"{label}: ok host_stream_bitwise=True {note} rounds={res.rounds} "
+              f"radius2={res.radius2.item()!r} wall_ms={wall:.3f} "
+              f"launches={launches} sync_warnings={len(syncs)} "
+              f"blocks_streamed={blocks} peak_MiB={peak / MiB:.2f}", flush=True)
+    del shw, xk, wk
+
+    kdd = HostSource(kdd_host(P))
+    label = (f"12d eim kddlike n={kdd.n} d={kdd.d} host, S={MESH_SHARDS} at "
+             f"{MESH_BUDGET // MiB} MiB a shard, k=25, key {EIM_KEY}")
+    res, launches, syncs, blocks, peak, wall = mesh_run(
+        torch, lambda: eim(kdd, 25, EIM_KEY, executor=ex), counters, warm=False)
+    iters = int(res.sample.iters)
+    check(len(syncs) == eim_syncs("streamed", iters),
+          f"{label}: {len(syncs)} synchronising calls for {iters} iterations")
+    tally(label, launches, ("fused_filter", "gon_step"))
+    host = eim(kdd, 25, EIM_KEY, executor=HostStreamExecutor(memory_budget=MESH_BUDGET))
+    check(same_eim(res, host), f"{label}: differs from HostStreamExecutor's eim")
+    st = eim_stats(res, kdd.n, 25)
+    print(f"{label}: ok host_stream_bitwise=True iterations={iters} |S|={st['S']} "
+          f"|C|={st['C']} radius2={res.radius2.item()!r} wall_ms={wall:.3f} "
+          f"launches={launches} sync_warnings={len(syncs)} blocks_streamed={blocks} "
+          f"peak_MiB={peak / MiB:.2f}", flush=True)
+
+    n, k = MESH_CORESET
+    x = P.kddlike(n, seed=0)
+    xt = cuda_t(torch, x)
+    flat = make_mesh((50,), ("data",))
+
+    def fn(impl="auto"):
+        return select_coreset(xt, k, mesh=flat, impl=impl)
+    label = f"12d select_coreset(mesh=) kddlike n={n} d=38 k={k} mesh=(50,)"
+    res, launches, syncs, _, _, wall = mesh_run(torch, fn, counters)
+    check(not syncs, f"{label}: {len(syncs)} synchronising calls")
+    tally(label, launches, ("gon_step", "assign", "assign_sums", "argmin_rows"))
+    check(launches["argmin_rows"] == 1, f"{label}: {launches['argmin_rows']} argmin "
+          "launches (one expected)")
+    check(int(res.weights.sum()) == n, f"{label}: counts sum to {int(res.weights.sum())}")
+    ref = fn("ref")
+    moved, ties, idiff = check_coreset(torch, engine, label, HostSource(x), 100_000,
+                                       res, ref)
+    print(f"{label}: ok representatives_differing={idiff} weight_rows_moved_vs_ref="
+          f"{moved} near_tie_rows={ties} radius2={res.radius2.item()!r} "
+          f"wall_ms={wall:.3f} launches={launches} sync_warnings={len(syncs)}",
+          flush=True)
+    return totals
+
+
 def digest(*tensors) -> str:
     """SHA-1 of the tensors' bytes, in order: equal digests, bitwise equal
     results."""
@@ -3281,6 +3521,7 @@ def main() -> int:
     serve_totals = phase_serve_shapes(torch, engine, P, rng, results, kdd_sketch)
     serve_ingest_totals = phase_serve(torch, engine, P, counters, kdd_sketch,
                                       HostSource(kdd_host(P)))
+    mesh_totals = phase_mesh(torch, engine, P, counters)
 
     # times at each path's first shape on float inputs — in memory: GON step
     # m=50, per=20000, d=2; assign n=1e6, k=25, d=2 (paper Fig. 4); streamed:
@@ -3290,8 +3531,8 @@ def main() -> int:
     # the batched assign at m=50, per=20000, t=125, d=2, the sums entry at
     # phase 9's round 1 (1 x 573,580 rows, t=125, d=38), pairwise at the
     # sketch's (101, 101, 38) bootstrap in f32. Launches: every launch of the
-    # kernel's wrapper in the counted runs of phases 3, 5, 7, 8 and 10, and
-    # phase 11's deterministic ones (11a's assign_bucketed calls, 11c's
+    # kernel's wrapper in the counted runs of phases 3, 5, 7, 8, 10 and 12,
+    # and phase 11's deterministic ones (11a's assign_bucketed calls, 11c's
     # ingest), each counted once, by the wrapper that made it (the streamed and batched
     # assign's cluster sums take the sums entry: assign_sums, not
     # fused_assign or assign_batched). max_abs_err over every check of the
@@ -3327,7 +3568,7 @@ def main() -> int:
         launches = sum(t.get(name, 0) for t in (totals, stream_totals,
                                                 weighted_totals, sketch_totals,
                                                 eim_totals, serve_totals,
-                                                serve_ingest_totals))
+                                                serve_ingest_totals, mesh_totals))
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": max(r["err"] for r in mine),

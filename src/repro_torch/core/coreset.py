@@ -8,7 +8,7 @@ cloud is bounded by host RAM or disk, not by device memory.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -18,7 +18,7 @@ from repro_torch.kernels import ops
 
 from .executor import Executor
 from .gonzalez import gonzalez
-from .mrg import mrg
+from .mrg import mrg, mrg_distributed
 
 
 class Coreset(NamedTuple):
@@ -29,14 +29,18 @@ class Coreset(NamedTuple):
 
 
 def select_coreset(embeddings, k: int, *, mesh=None,
+                   shard_axes: Sequence[str] = ("data",),
                    executor: Executor | None = None, impl: str = "auto",
                    chunk: int | None = None, block_rows: int | None = None,
                    memory_budget: int | None = None,
                    device=None) -> Coreset:
     """Pick k maximally diverse examples from ``embeddings (n, d)``.
 
-    With an ``executor``, runs MRG on it (e.g. ``HostStreamExecutor`` for
-    an out-of-core cloud); without one, runs GON (2-approximation),
+    With a ``mesh`` (``launch.mesh.Mesh``), runs the paper's MRG across
+    its ``shard_axes`` (``mrg_distributed``, the fused path: 2 rounds,
+    4-approximation); with an ``executor``, runs MRG on it (e.g.
+    ``HostStreamExecutor`` for an out-of-core cloud); without either, runs
+    GON (2-approximation),
     streamed if ``embeddings`` is a host, disk or generator
     ``PointSource``. The reverse passes — cluster sizes and each center's
     example index — stream too for such a source, and inherit the
@@ -49,9 +53,8 @@ def select_coreset(embeddings, k: int, *, mesh=None,
     bitwise for integer weights whose sums stay below 2^24.
 
     ``chunk`` (rows) bounds every distance pass's plain-route tiles, the
-    reverse passes' included. ``device=None`` means the executor's device,
-    else ``"cuda"``. ``mesh`` (``MeshExecutor``) is not ported yet and
-    raises.
+    reverse passes' included. ``device=None`` means the mesh's or the
+    executor's device, else ``"cuda"``.
 
     >>> import numpy as np
     >>> emb = np.random.default_rng(0).normal(size=(100, 8)).astype(np.float32)
@@ -61,13 +64,12 @@ def select_coreset(embeddings, k: int, *, mesh=None,
     >>> int(cs.weights.sum())      # every example lands in one cluster
     100
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh= (MeshExecutor) is not ported yet")
-    if executor is not None:
+    runner = mesh if mesh is not None else executor
+    if runner is not None:
         if device is not None:
-            raise ValueError("pass device= to the executor, not to "
-                             "select_coreset()")
-        dev = executor.device
+            raise ValueError("pass device= to the mesh or the executor, "
+                             "not to select_coreset()")
+        dev = runner.device
     else:
         dev = resolve_device(device)
     if is_source(embeddings):
@@ -81,12 +83,19 @@ def select_coreset(embeddings, k: int, *, mesh=None,
     if block_rows is None and memory_budget is None and executor is not None:
         block_rows = getattr(executor, "block_rows", None)
         memory_budget = getattr(executor, "memory_budget", None)
-    if executor is not None:
-        res = mrg(src, k, executor=executor, impl=impl, chunk=chunk)
+    if mesh is not None:
+        # the fused mesh path shards a device-resident copy
+        centers, r2 = mrg_distributed(as_points(src, dev), k, mesh,
+                                      shard_axes=shard_axes, impl=impl,
+                                      chunk=chunk)
     else:
-        res = gonzalez(src, k, impl=impl, chunk=chunk, block_rows=block_rows,
-                       memory_budget=memory_budget, device=dev)
-    centers, r2 = res.centers, res.radius2
+        if executor is not None:
+            res = mrg(src, k, executor=executor, impl=impl, chunk=chunk)
+        else:
+            res = gonzalez(src, k, impl=impl, chunk=chunk,
+                           block_rows=block_rows,
+                           memory_budget=memory_budget, device=dev)
+        centers, r2 = res.centers, res.radius2
     # int32 counts are exact (n < 2^31); a weighted source's f32 weight sums
     # are exact below 2^24 for integer weights. One pass of the assign with
     # the sums folded in, every block adding into the same (k,) tensor.

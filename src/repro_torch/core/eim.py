@@ -386,8 +386,8 @@ def _eim_sample_stream(source, k: int, key, *, eps: float, phi: float,
         # fail before the loop does any work
         raise NotImplementedError(
             f"{type(executor).__name__} does not implement EIM's "
-            "run_filter_round; use HostStreamExecutor (streamed) or "
-            "SimExecutor (simulated machines)")
+            "run_filter_round; use HostStreamExecutor (streamed), "
+            "SimExecutor (simulated machines) or MeshExecutor (sharded)")
     n = source.n
     _, threshold, s_cap, _, rank, num_s, num_h = _params(n, k, eps, phi)
     rows = (executor.rows_for(source) if hasattr(executor, "rows_for")

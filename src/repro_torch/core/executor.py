@@ -6,6 +6,13 @@
     from a point source through its pinned upload ring, under
     ``memory_budget`` (the paper's machine capacity c, in bytes), so n is
     bounded by host RAM or disk and not by device memory.
+  * ``MeshExecutor`` — the machines are the shards of a named mesh
+    (``repro_torch.launch.mesh``). An in-memory input runs the fused path:
+    GON on every shard, the center sets gathered along the shard axes (one
+    axis at a time with a GON a level when ``hierarchical``), the final
+    GON and the radius. A point source is split into the paper's
+    contiguous machine ranges (``ShardedSource``) and streamed shard by
+    shard in lockstep, under a per-shard ``memory_budget``.
 
 Their interface is the JAX package's:
 
@@ -44,15 +51,19 @@ from __future__ import annotations
 import functools
 import warnings
 import weakref
+from collections import deque
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.data.source import as_source, has_weights, weights_of
+from repro_torch.data.source import (ArraySource, ShardedSource, as_source,
+                                     has_weights, shard_source, stream_device,
+                                     weights_of)
 from repro_torch.device import as_points, resolve_device, upload
 from repro_torch.kernels import engine, ops, ref
+from repro_torch.launch.mesh import all_gather, all_max
 
 from .gonzalez import _gonzalez_device
 
@@ -245,6 +256,24 @@ def check_combine_capacity(k: int, capacity: int, *,
             "stall and raise", RuntimeWarning, stacklevel=3)
 
 
+def _resident_radius2(x: torch.Tensor, centers: torch.Tensor, weights, *,
+                      impl: str, chunk: int | None, objective):
+    """The squared covering radius over device-resident points ``x``: one
+    pass of the nearest-center kernel (#2) over all rows, then the max
+    itself (a sqrt -> square round trip is lossy). A non-plain objective
+    changes only the reduction (the top-(z+1), over the rows whose
+    ``weights()`` are positive when weighted): the top-1 of a multiset is
+    its max, so unit-weight runs keep the bits."""
+    _, d2 = ops.assign_nearest(x, centers, impl=impl, chunk=chunk)
+    if _is_plain(objective):
+        return d2.max()
+    if objective.weighted:
+        d2 = torch.where(weights() > 0, d2, ref.NEG)
+    r = objective.outliers + 1
+    top = engine.merge_top_k(engine.top_k_init(r, x.device), d2, r)
+    return torch.clamp_min(top[r - 1], 0.0)
+
+
 class Executor:
     """Base: block-mapped round 1 + shared Lemma-3 reduction."""
 
@@ -366,8 +395,8 @@ class Executor:
         H held fewer than ``rank`` rows)."""
         raise NotImplementedError(
             f"{type(self).__name__} does not implement EIM's "
-            "run_filter_round; use HostStreamExecutor (streamed) or "
-            "SimExecutor (simulated machines)")
+            "run_filter_round; use HostStreamExecutor (streamed), "
+            "SimExecutor (simulated machines) or MeshExecutor (sharded)")
 
     def end_filter_rounds(self, source) -> None:
         """Called when an EIM run's loop is done with ``source``: the hook
@@ -443,19 +472,9 @@ class SimExecutor(Executor):
 
     def radius2(self, source, centers, *, impl="auto", chunk=None,
                 objective=None):
-        # One pass of the nearest-center kernel over all n points; returns
-        # the squared max directly (a sqrt -> square round trip is lossy).
-        _, d2 = ops.assign_nearest(as_points(source, self.device), centers,
-                                   impl=impl, chunk=chunk)
-        if _is_plain(objective):
-            return d2.max()
-        # the objective changes only the reduction: the top-1 of a multiset
-        # is its max, so unit-weight runs keep the bits
-        if objective.weighted:
-            d2 = torch.where(self._weights(source) > 0, d2, ref.NEG)
-        r = objective.outliers + 1
-        top = engine.merge_top_k(engine.top_k_init(r, self.device), d2, r)
-        return torch.clamp_min(top[r - 1], 0.0)
+        return _resident_radius2(as_points(source, self.device), centers,
+                                 lambda: self._weights(source), impl=impl,
+                                 chunk=chunk, objective=objective)
 
     def _blocked_for(self, source):
         """``(n, points blocked (m, per, d))`` of ``source`` on the device,
@@ -626,3 +645,336 @@ class HostStreamExecutor(Executor):
         if have_s:
             back.into(d_s)
         return d_s, pivot
+
+
+class MeshExecutor(Executor):
+    """The machines are the shards of a named mesh (``launch.mesh.Mesh``).
+
+    The shards are the positions along ``shard_axes``; shard ``i`` is the
+    row-major index over those axes as listed (the JAX package's
+    ``P(shard_axes)``) and holds rows ``[i·per, (i+1)·per)``. Positions
+    along the other mesh axes are replicas that would compute the same
+    values, so each shard is computed once. In one process every shard
+    lies on the mesh's one device: the machine axis is a leading batch axis
+    of the kernels, as in ``SimExecutor``.
+
+    Two input regimes share the executor:
+
+    * **In memory** (a tensor, numpy array or ``ArraySource`` given to
+      ``mrg``): the fused path. GON runs on every shard (kernel #1, one
+      launch an iteration for all shards), the center sets are gathered
+      along the shard axes (``launch.mesh.all_gather``; with
+      ``hierarchical`` and more than one axis, one gather and one GON a
+      level per axis, Lemma 3), the final GON runs on the union, and the
+      radius is one nearest-center pass (#2) over all rows with the max
+      over the shards (``all_max``). n must divide by the shard count.
+      ``capacity=`` raises: the mesh fixes the machine capacity here.
+    * **Streamed** (any point source, split by ``shard_source`` into the
+      paper's contiguous machine ranges, or a ``ShardedSource`` whose
+      shard count matches): round 1 takes one block of every shard a step
+      (``engine.zip_shard_blocks``), uploaded as one ``(S, rows, d)``
+      block through the sources' pinned ring, and runs GON on the S blocks
+      at once; the union is ordered shard-major (the global row order).
+      Rounds 2+ are the shared Lemma-3 ``combine`` (``capacity`` is
+      honoured), the radius is the streamed fold over the shards' blocks,
+      and EIM's ``run_filter_round`` streams the same steps.
+      ``memory_budget`` is per shard: ``rows`` is solved against the
+      ``(1+prefetch)·4·rows·(d+1)`` model of one shard, so the ring holds
+      S budgets at once. ``mrg`` and ``eim`` over a ``ShardedSource`` are
+      bitwise ``HostStreamExecutor`` at the same ``block_rows`` where each
+      shard's rows are a multiple of it, and with one block a shard bitwise
+      ``mrg_sim(m=S)``.
+
+    No step reads a value back to the host except EIM's pivot, once a
+    filter round, as on ``HostStreamExecutor``. The executor runs where the
+    mesh's device is; a mesh on ``"cuda"`` raises where there is none.
+    """
+
+    def __init__(self, mesh, shard_axes: Sequence[str] = ("data",),
+                 hierarchical: bool = False, *,
+                 block_rows: int | None = None,
+                 memory_budget: int | None = None,
+                 prefetch: int = engine.DEFAULT_PREFETCH):
+        if prefetch < 1:
+            raise ValueError(f"prefetch must be >= 1, got {prefetch}")
+        self.mesh = mesh
+        self.shard_axes = tuple(shard_axes)
+        if not self.shard_axes:
+            raise ValueError("shard_axes must name at least one mesh axis")
+        missing = [a for a in self.shard_axes if a not in mesh.shape]
+        if missing:
+            raise ValueError(f"shard axes {missing} are not axes of the mesh "
+                             f"{tuple(mesh.axis_names)}")
+        self.hierarchical = hierarchical
+        self.block_rows = block_rows
+        self.memory_budget = memory_budget
+        self.prefetch = prefetch
+        self.device = resolve_device(mesh.device)
+
+    # -- the machine blocking the mesh implies ------------------------------
+
+    @property
+    def grid(self) -> tuple:
+        """The shard axes' sizes, in ``shard_axes`` order: shard ``i`` is
+        the row-major index over this grid."""
+        return tuple(int(self.mesh.shape[a]) for a in self.shard_axes)
+
+    @property
+    def num_shards(self) -> int:
+        """Machines: the product of the shard axes' sizes."""
+        count = 1
+        for size in self.grid:
+            count *= size
+        return count
+
+    def _sharded(self, source) -> ShardedSource:
+        """The per-shard view of ``source``: a ``ShardedSource`` passes
+        through when its shard count is the mesh's (a mismatch is a
+        partitioning fault and raises); anything else is split into the
+        paper's contiguous machine ranges (``SliceSource`` views)."""
+        src = as_source(source)
+        if isinstance(src, ShardedSource):
+            if src.num_shards != self.num_shards:
+                raise ValueError(
+                    f"ShardedSource has {src.num_shards} shards but the "
+                    f"mesh blocking over {self.shard_axes} has "
+                    f"{self.num_shards} — re-shard the input or change "
+                    "shard_axes")
+            return src
+        return shard_source(src, self.num_shards)
+
+    def rows_for(self, source) -> int:
+        """Per-shard block rows: ``block_rows``, or ``memory_budget``
+        (bytes, a shard's) solved against the ring's residency model for
+        the largest shard, as ``HostStreamExecutor`` does for the whole
+        source."""
+        sh = self._sharded(source)
+        return engine.resolve_block_rows(max(sh.max_shard_rows, 1), sh.d,
+                                         block_rows=self.block_rows,
+                                         memory_budget=self.memory_budget,
+                                         prefetch=self.prefetch)
+
+    def default_capacity(self, source, k: int) -> int:
+        return max(self.rows_for(source), 2 * k)
+
+    def _local_ids(self, sh: ShardedSource):
+        """The shards this process feeds: all of them (``None``), as this
+        executor runs in one process. A source that holds data for fewer
+        shards than it has (shards of other processes) raises: no other
+        process exists to feed them."""
+        src_local = getattr(sh, "local_shard_ids", None)
+        if src_local is not None and len(src_local) < sh.num_shards:
+            raise ValueError(
+                "source has remote shards but the runtime is "
+                "single-process — no other process exists to feed them")
+        return None
+
+    # -- per-step sharded streaming -----------------------------------------
+
+    def _stream_steps(self, sh: ShardedSource, rows: int, *,
+                      weighted: bool = False, masks: bool = True):
+        """Round 1's and the filter rounds' steps on the device: yields
+        ``(pts (S, rows, d), mask (S, rows) bool or None, counts (S,) np)``,
+        with ``weighted`` ``(pts, mask, w (S, rows), counts)``. A step is
+        one ``(S·rows, d)`` block through the sources' pinned ring (its
+        weights in the same slot), up to ``prefetch`` steps ahead. The mask
+        (rows below each shard's count; ``masks=False`` skips it) is made
+        on the device from the uploaded counts, and is ``None`` for a full
+        step, whose every row is valid."""
+        self._local_ids(sh)
+        S, d, dev = sh.num_shards, sh.d, self.device
+        counts_q: deque = deque()
+
+        def host():
+            for step in engine.zip_shard_blocks(sh.shards, rows,
+                                                with_weights=weighted):
+                counts_q.append(step[-1])
+                pts = step[0].reshape(S * rows, d)
+                yield (pts, step[1].reshape(-1)) if weighted else pts
+
+        lanes = torch.arange(rows, device=dev)
+        for item in stream_device(host(), self.prefetch, dev,
+                                  paired=weighted):
+            counts = counts_q.popleft()
+            blk = item[0] if weighted else item
+            pts = blk.view(S, rows, d)
+            mask = None
+            if masks and bool((counts < rows).any()):
+                mask = lanes[None, :] < upload(counts, dev)[:, None]
+            if weighted:
+                yield pts, mask, item[1].view(S, rows), counts
+            else:
+                yield pts, mask, counts
+
+    # -- the Executor interface, sharded ------------------------------------
+
+    def run_blocks(self, fn, source, *, objective=None):
+        """Round 1 over the mesh machines: a step's S blocks (padded,
+        masked where short) go through ``fn`` at once, the machine axis
+        leading (one GON launch an iteration for all shards). The union is
+        ordered shard-major (shard 0's blocks first): the global row order,
+        ``HostStreamExecutor``'s union for the same blocking. A step where a
+        shard has run out gives that shard k invalid rows."""
+        sh = self._sharded(source)
+        rows = self.rows_for(sh)
+        weighted = not _is_plain(objective) and objective.weighted
+        cs, ws, vs = [], [], []
+        for step in self._stream_steps(sh, rows, weighted=weighted):
+            counts = step[-1]
+            if weighted:
+                c, cw = fn(step[0], step[1], step[2])      # (S,k,d), (S,k)
+                ws.append(cw)
+            else:
+                c = fn(step[0], step[1])                    # (S, k, d)
+            cs.append(c)
+            vs.append(counts > 0)
+        if not cs:
+            raise ValueError("cannot run round 1 over an empty source")
+        k, d = cs[0].shape[1], cs[0].shape[2]
+        centers = torch.stack(cs, dim=1).reshape(-1, d)    # (S·B·k, d)
+        valid = upload(np.repeat(np.stack(vs, axis=1).reshape(-1), k),
+                       self.device)
+        if weighted:
+            return centers, valid, torch.stack(ws, dim=1).reshape(-1)
+        return centers, valid
+
+    def radius2(self, source, centers, *, impl="auto", chunk=None,
+                objective=None):
+        """Squared covering radius: over an ``ArraySource``, one
+        nearest-center pass over all rows (#2) and the max (or the
+        objective's top-(z+1)); over a sharded or host-backed source, the
+        streamed fold over the ``ShardedSource``'s blocks, which never
+        cross a shard boundary (#3; #6 when weighted), at the per-shard
+        ``rows``. Both give the bits of the other executors' radius."""
+        src = as_source(source)
+        if isinstance(src, ArraySource):
+            return _resident_radius2(
+                as_points(src, self.device), centers,
+                lambda: torch.ones((src.n,), dtype=torch.float32,
+                                   device=self.device),
+                impl=impl, chunk=chunk, objective=objective)
+        sh = self._sharded(src)
+        self._local_ids(sh)
+        rows = self.rows_for(sh)
+        if not _is_plain(objective):
+            top = engine.fold_top_k_min_d2(
+                sh, centers, objective.outliers + 1, impl=impl, chunk=chunk,
+                block_rows=rows, prefetch=self.prefetch,
+                weighted=objective.weighted, device=self.device)
+            return torch.clamp_min(top[objective.outliers], 0.0)
+        return engine.fold_min_d2(sh, centers, impl=impl, chunk=chunk,
+                                  block_rows=rows, prefetch=self.prefetch,
+                                  device=self.device)
+
+    def run_filter_round(self, source, s_new, d_s, h_mask, rank, *,
+                         impl="auto", chunk=None, weights=None):
+        """EIM's Rounds 2-3 over the mesh machines: each step updates every
+        shard's slice of ``d(x, S_new)`` and takes its top-k (one filter
+        launch over the step's S blocks; a row's update does not depend on
+        its shard, and top-k values do not depend on the blocking), merged
+        into the pivot. ``source`` may be a compacted ``IndexedSource``
+        view: it is split into contiguous machine ranges on the fly, and
+        ``d_s``/``h_mask`` hold its slices, read and updated at per-shard
+        cursors. Padded lanes carry ``d = 3.4e38`` and ``H = False``. The
+        updated ``d_s`` comes back by non-blocking copies, which the pivot
+        read (the round's one synchronising call) orders. ``weights``
+        raises, as in the JAX package: no weighted caller exists."""
+        if weights is not None:
+            raise NotImplementedError(
+                "MeshExecutor.run_filter_round does not support weights "
+                "yet — use SimExecutor or HostStreamExecutor for weighted "
+                "filter rounds")
+        sh = self._sharded(source)
+        rows = self.rows_for(sh)
+        S, d, dev = sh.num_shards, sh.d, self.device
+        have_s = s_new is not None and len(s_new) > 0
+        c = upload(np.asarray(s_new, np.float32), dev) if have_s else None
+        back = _HostCopy(sh.n, dev) if have_s else None
+        top = engine.top_k_init(rank, dev)
+        pos = sh.offsets[:-1].astype(np.int64)       # per-shard view cursor
+        for pts, _, counts in self._stream_steps(sh, rows, masks=False):
+            d_np = np.full((S, rows), _BIG, np.float32)
+            h_np = np.zeros((S, rows), bool)
+            for s in range(S):
+                a, nb = int(pos[s]), int(counts[s])
+                d_np[s, :nb] = d_s[a:a + nb]
+                h_np[s, :nb] = h_mask[a:a + nb]
+            d_blk = upload(d_np.reshape(-1), dev)
+            h_blk = upload(h_np.reshape(-1), dev)
+            if have_s:
+                d_blk, top = engine.eim_filter_block(
+                    pts.view(S * rows, d), c, d_blk, h_blk, top, rank=rank,
+                    impl=impl, chunk=chunk)
+                for s in range(S):
+                    if counts[s]:
+                        back.put(int(pos[s]),
+                                 d_blk[s * rows:s * rows + int(counts[s])])
+            else:
+                top = _eim_pivot_block(d_blk, h_blk, top, rank=rank)
+            pos += counts
+        pivot = _pivot_from_top(top, rank)
+        if have_s:
+            back.into(d_s)
+        return d_s, pivot
+
+    # -- MRG: the fused path, or the streamed sharded rounds ----------------
+
+    def mrg(self, source, k: int, *, capacity: int | None = None,
+            impl: str = "auto", chunk: int | None = None, objective=None):
+        """MRG on the mesh. An ``ArraySource`` runs the fused path
+        (``capacity=`` raises: the mesh blocking fixes the capacity there);
+        any other source runs the streamed sharded rounds with the shared
+        Lemma-3 ``combine`` (``capacity`` honoured). Non-plain objectives
+        always take the streamed rounds, as in the JAX package."""
+        src = as_source(source)
+        if isinstance(src, ArraySource) and _is_plain(objective):
+            if capacity is not None:
+                raise ValueError(
+                    "MeshExecutor's machine capacity on the device path is "
+                    "fixed by the mesh blocking (shard size / gather "
+                    "tree); capacity= is not supported — use shard_axes/"
+                    "hierarchical, or pass a ShardedSource / host-backed "
+                    "source for the streamed path")
+            return self._mrg_fused(src, k, impl=impl, chunk=chunk)
+        return super().mrg(src, k, capacity=capacity, impl=impl, chunk=chunk,
+                           objective=objective)
+
+    def _mrg_fused(self, source, k: int, *, impl: str = "auto",
+                   chunk: int | None = None):
+        """The fused path: ``(centers (k, d), radius2 (), rounds)``.
+
+        GON on every shard, unmasked (the S shards one batch); then the
+        flat gather along every shard axis in order and one GON over the
+        union, or with ``hierarchical`` and more than one axis a gather
+        and a GON a level, each level's groups one batch; then the radius
+        as one nearest-center pass over all n rows against the final
+        centers and the max over the shards (d² is computed per row, so
+        these are the bits of per-shard maxima and their max)."""
+        x = as_points(source, self.device)
+        n, d = x.shape
+        S, grid = self.num_shards, self.grid
+        if n % S:
+            raise ValueError(
+                f"the fused mesh path splits the n={n} rows evenly over the "
+                f"{S} shards of {self.shard_axes}; n must be a multiple of "
+                f"{S} — pad the input, or pass a point source for the "
+                "streamed path")
+        per = n // S
+        centers = _gonzalez_device(x.view(S, per, d), k, impl=impl,
+                                   chunk=chunk).centers.view(*grid, k, d)
+        levels = self.hierarchical and len(grid) > 1
+        for a in range(len(grid)):
+            centers = all_gather(centers, a)
+            if levels:
+                g = centers.shape[:-2]
+                centers = _gonzalez_device(
+                    centers.reshape(-1, centers.shape[-2], d), k, impl=impl,
+                    chunk=chunk).centers.view(*g, k, d)
+        if not levels:
+            centers = _gonzalez_device(centers.reshape(1, -1, d), k,
+                                       impl=impl, chunk=chunk).centers
+        final = centers.reshape(k, d)
+        _, d2 = ops.assign_nearest(x, final, impl=impl, chunk=chunk)
+        r2 = all_max(d2.view(*grid, per).amax(dim=-1))
+        rounds = 1 + (len(grid) if levels else 1)
+        return final, r2, rounds

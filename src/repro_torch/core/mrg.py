@@ -8,7 +8,8 @@ pass over all points.
 
 Inputs are numpy arrays, tensors or point sources: raw arrays run in
 memory on ``SimExecutor``, a host, disk or generator source streams on
-``HostStreamExecutor``. An ``Objective`` makes the run weighted (the
+``HostStreamExecutor``; on a ``MeshExecutor`` the machines are mesh shards
+(``mrg_distributed``). An ``Objective`` makes the run weighted (the
 cluster weights in ``MRGResult.weights``) or scores the radius without the
 z farthest points. ``chunk`` streams every distance pass's plain route in
 row chunks (the centers do not change).
@@ -16,14 +17,14 @@ row chunks (the centers do not change).
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
 from repro_torch.data.source import ArraySource, as_source, is_source
 
-from .executor import (Executor, HostStreamExecutor, Objective,  # noqa: F401
-                       SimExecutor, _block, _is_plain, _mrg_round)
+from .executor import (Executor, HostStreamExecutor, MeshExecutor,  # noqa: F401
+                       Objective, SimExecutor, _block, _is_plain, _mrg_round)
 
 
 class MRGResult(NamedTuple):
@@ -111,3 +112,33 @@ def mrg_sim(points, k: int, m: int = 50, *, capacity: int | None = None,
     """Paper Algorithm 1 with m simulated machines on one device."""
     return mrg(points, k, m=m, capacity=capacity, impl=impl, chunk=chunk,
                device=device)
+
+
+def mrg_distributed(points, k: int, mesh, *,
+                    shard_axes: Sequence[str] = ("data",),
+                    hierarchical: bool = False, impl: str = "auto",
+                    chunk: int | None = None):
+    """MRG on the shards of ``mesh`` (a ``launch.mesh.Mesh``): a thin shim
+    over ``MeshExecutor``.
+
+    ``points (n, d)`` (a numpy array or a tensor: the fused path, n a
+    multiple of the shard count; a point source streams shard by shard) is
+    split along ``shard_axes``. Round 1: GON on every shard. Round 2(+):
+    the center sets gathered along the shard axes; with ``hierarchical``,
+    one axis at a time with a GON a level (Lemma 3's multi-round form, +2
+    to the approximation factor a level). ``chunk`` bounds the plain
+    route's distance tiles. Returns ``(centers (k, d), radius2 ())``.
+
+    >>> import numpy as np
+    >>> from repro_torch.launch import make_mesh
+    >>> mesh = make_mesh((4, 2), ("data", "model"), device="cpu")
+    >>> x = np.random.default_rng(0).normal(size=(800, 4)).astype(np.float32)
+    >>> c, r2 = mrg_distributed(x, 6, mesh)
+    >>> tuple(c.shape)
+    (6, 4)
+    """
+    ex = MeshExecutor(mesh, shard_axes=shard_axes, hierarchical=hierarchical)
+    source = (points if is_source(points)
+              else ArraySource(points, device=ex.device))
+    centers, r2, _ = ex.mrg(source, k, impl=impl, chunk=chunk)
+    return centers, r2

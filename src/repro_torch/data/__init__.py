@@ -4,7 +4,9 @@
                  ``repro.data.pointsets``: numpy Philox, so both packages
                  draw bitwise the same inputs from a seed; the JAX package
                  reaches its copy through ``repro.data``, which imports jax)
-  source.py    — out-of-core point sources and the pinned upload ring
+  source.py    — out-of-core point sources, the sharded input of the mesh
+                 (``ShardedSource``, ``shard_source``) and the pinned
+                 upload ring
 """
 from .pointsets import GENERATORS, gau, kddlike, pokerlike, unb, unif  # noqa: F401
 from .source import (  # noqa: F401
@@ -13,11 +15,14 @@ from .source import (  # noqa: F401
     IndexedSource,
     MemmapSource,
     PointSource,
+    ShardedSource,
+    SliceSource,
     SyntheticSource,
     WeightedSource,
     as_source,
     has_weights,
     is_source,
+    shard_source,
     stream_device,
     synthetic_source,
     take_weights,

@@ -40,8 +40,12 @@ copied and released together. ``has_weights``, ``weights_of`` and
 ``take_weights`` give unit weights for every other source.
 
 ``IndexedSource`` is a view of a parent source through sorted global row
-indices: the compacted relation of the streamed EIM. The other view
-sources (slice, sharded, process-sharded) are not ported yet.
+indices: the compacted relation of the streamed EIM. ``SliceSource`` is a
+contiguous row range of a parent, and ``ShardedSource`` one source per
+machine shard, the paper's partitioned input (``shard_source`` splits one
+source into the paper's contiguous machine ranges); the mesh executor
+streams each shard's blocks in lockstep. The per-process sources
+(``RemoteShard``, ``ProcessShardedSource``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -54,7 +58,7 @@ import torch
 
 from repro_torch.device import resolve_device, upload
 # the ring depth's one home is the engine's residency model
-from repro_torch.kernels.engine import DEFAULT_PREFETCH
+from repro_torch.kernels.engine import DEFAULT_PREFETCH, host_blocks_of
 
 from . import pointsets
 
@@ -144,18 +148,18 @@ def _check_take_indices(indices, n: int) -> np.ndarray:
 
 def stream_device(host_blocks: Iterator[np.ndarray],
                   prefetch: int = DEFAULT_PREFETCH,
-                  device=None, weights: np.ndarray | None = None
+                  device=None, *, paired: bool = False
                   ) -> Iterator[torch.Tensor]:
     """Upload numpy blocks to ``device`` (``None`` means ``"cuda"``) and
-    yield them as float32 tensors, in order. With ``weights`` (the f32 row
-    weights of the whole stream, on the host) it yields ``(block, block's
-    weights)`` pairs instead.
+    yield them as float32 tensors, in order. With ``paired=True`` each host
+    item is a ``(block, per-row f32 column)`` pair (the block's weights) and
+    it yields ``(block, column)`` pairs.
 
     On a CUDA device the blocks go through a ring of ``1 + prefetch``
     slots, each a pinned host buffer and a device buffer. A block is copied
     into its slot's pinned buffer on the host, then to the device buffer
     with ``non_blocking=True`` on a side stream, up to ``prefetch`` blocks
-    ahead of the one the consumer holds. A block's weights sit in the same
+    ahead of the one the consumer holds. A block's column sits in the same
     slot right after its points (``rows·d`` floats, then ``rows``: the
     residency model's ``+1`` column), so one copy carries both. Two events
     per slot order it:
@@ -176,24 +180,32 @@ def stream_device(host_blocks: Iterator[np.ndarray],
         raise ValueError(f"prefetch must be >= 1, got {prefetch}")
     dev = resolve_device(device)
     if dev.type != "cuda":
-        return _cpu_blocks(host_blocks, dev, weights)
-    return _cuda_ring(iter(host_blocks), prefetch, dev, weights)
+        return _cpu_blocks(host_blocks, dev, paired)
+    return _cuda_ring(iter(host_blocks), prefetch, dev, paired)
 
 
 stream_device.uploads = 0
 
 
-def _cpu_blocks(host_blocks, dev: torch.device, weights):
-    off = 0
-    for blk in host_blocks:
-        x = torch.from_numpy(np.array(blk, np.float32)).to(dev)
-        if weights is None:
-            yield x
-        else:
-            nb = x.shape[0]
-            yield x, torch.from_numpy(np.array(weights[off:off + nb],
-                                               np.float32)).to(dev)
-            off += nb
+def _split_item(item, paired: bool):
+    """``(points, column or None)`` of one host item of ``stream_device``."""
+    blk, col = item if paired else (item, None)
+    blk = np.asarray(blk, np.float32)
+    if blk.ndim != 2:
+        raise ValueError(f"expected a (rows, d) block, got {blk.shape}")
+    if col is not None:
+        col = np.asarray(col, np.float32).reshape(-1)
+        if col.shape[0] != blk.shape[0]:
+            raise ValueError(f"a block of {blk.shape[0]} rows came with "
+                             f"{col.shape[0]} weights")
+    return blk, col
+
+
+def _cpu_blocks(host_blocks, dev: torch.device, paired: bool):
+    for item in host_blocks:
+        blk, col = _split_item(item, paired)
+        x = torch.from_numpy(np.array(blk)).to(dev)
+        yield x if col is None else (x, torch.from_numpy(np.array(col)).to(dev))
 
 
 class _Slot:
@@ -216,21 +228,18 @@ class _Slot:
         self.used = False     # events recorded at least once
 
 
-def _cuda_ring(it, prefetch: int, dev: torch.device, weights):
+def _cuda_ring(it, prefetch: int, dev: torch.device, paired: bool):
     consumer = torch.cuda.current_stream(dev)
     side = torch.cuda.Stream(dev)
     slots: list[_Slot | None] = [None] * (1 + prefetch)
     ring: deque = deque()       # (slot, rows, d) in flight, in order
     count = 0
-    off = 0                     # the next block's first row
 
-    def put(blk: np.ndarray) -> None:
-        nonlocal count, off
-        blk = np.asarray(blk, np.float32)
-        if blk.ndim != 2:
-            raise ValueError(f"expected a (rows, d) block, got {blk.shape}")
+    def put(item) -> None:
+        nonlocal count
+        blk, col = _split_item(item, paired)
         nb, d = blk.shape
-        size = nb * (d + (weights is not None))
+        size = nb * (d + paired)
         s = count % len(slots)
         count += 1
         slot = slots[s]
@@ -240,12 +249,8 @@ def _cuda_ring(it, prefetch: int, dev: torch.device, weights):
             slot = slots[s] = _Slot(size, consumer, side)
         host = slot.pinned[:size].numpy()
         host[:nb * d].reshape(nb, d)[...] = blk
-        if weights is not None:
-            w = weights[off:off + nb]
-            if w.shape[0] != nb:
-                raise ValueError(f"weights end before row {off + nb}")
-            host[nb * d:] = w
-        off += nb
+        if paired:
+            host[nb * d:] = col
         with torch.cuda.stream(side):
             if slot.used:
                 side.wait_event(slot.consumed)
@@ -268,7 +273,7 @@ def _cuda_ring(it, prefetch: int, dev: torch.device, weights):
         consumer.wait_event(slot.copied)
         fill()          # the next blocks' copies start before this one is used
         x = slot.buf[:nb * d].view(nb, d)
-        yield x if weights is None else (x, slot.buf[nb * d:nb * (d + 1)])
+        yield (x, slot.buf[nb * d:nb * (d + 1)]) if paired else x
         slot.consumed.record(consumer)
 
 
@@ -499,14 +504,14 @@ class SyntheticSource(_HostBacked):
         consecutive indices costs one ``block_fn`` call."""
         idx = _check_take_indices(indices, self.n)
         out = np.empty((idx.size, self._d), np.float32)
-        i = 0
-        while i < idx.size:
-            j = i + 1
-            while j < idx.size and idx[j] == idx[j - 1] + 1:
-                j += 1
-            out[i:j] = np.asarray(self._fn(int(idx[i]), int(j - i)),
-                                  np.float32)
-            i = j
+        if idx.size == 0:
+            return out
+        # where each maximal run starts, found in one pass (a slice of a
+        # million rows is one run: one block_fn call, no per-row loop)
+        cuts = np.concatenate([[0], np.flatnonzero(np.diff(idx) != 1) + 1,
+                               [idx.size]])
+        for a, b in zip(cuts[:-1].tolist(), cuts[1:].tolist()):
+            out[a:b] = np.asarray(self._fn(int(idx[a]), b - a), np.float32)
         return out
 
 
@@ -598,6 +603,268 @@ class IndexedSource(_HostBacked):
         return upload(self._parent.take(self._idx), resolve_device(device))
 
 
+class SliceSource(_HostBacked):
+    """Contiguous-row view ``[start, stop)`` of a parent source.
+
+    The machine-shard sibling of ``IndexedSource``: a slice view is three
+    integers, so ``shard_source`` splits an n-row source into per-machine
+    shards without any O(n) structure on the host. Blocks are gathered by
+    the parent's ``take`` (a maximal run of consecutive rows, which every
+    built-in source serves cheaply) and uploaded through the pinned ring,
+    so streaming a shard costs O(block_rows) working memory. Nested slices
+    compose: ``SliceSource(SliceSource(p, a, b), c, d)`` points at ``p``
+    through ``[a + c, a + d)``.
+
+    >>> import numpy as np
+    >>> v = SliceSource(HostSource(np.arange(10, dtype=np.float32)[:, None]),
+    ...                 2, 6)
+    >>> v.n, v.take([0, 3]).ravel().tolist(), SliceSource(v, 1, 3).start
+    (4, [2.0, 5.0], 3)
+    """
+
+    def __init__(self, parent, start: int, stop: int):
+        start, stop = int(start), int(stop)
+        if not hasattr(parent, "take"):
+            raise TypeError(
+                f"SliceSource needs a parent with take() for run gathers; "
+                f"{type(parent).__name__} does not provide it")
+        if not 0 <= start <= stop <= parent.n:
+            raise ValueError(
+                f"slice [{start}, {stop}) out of range for n={parent.n}")
+        if isinstance(parent, SliceSource):
+            start += parent._start
+            stop += parent._start
+            parent = parent._parent
+        self._parent = parent
+        self._start = start
+        self._stop = stop
+
+    @property
+    def parent(self):
+        return self._parent
+
+    @property
+    def start(self) -> int:
+        """First (root-composed) parent row of the view."""
+        return self._start
+
+    @property
+    def stop(self) -> int:
+        """One past the last parent row of the view."""
+        return self._stop
+
+    @property
+    def n(self) -> int:
+        return self._stop - self._start
+
+    @property
+    def d(self) -> int:
+        return self._parent.d
+
+    def host_blocks(self, block_rows: int) -> Iterator[np.ndarray]:
+        """Numpy blocks gathered from the parent run by run, no device
+        transfer."""
+        rows = _check_rows(block_rows)
+        for a in range(self._start, self._stop, rows):
+            yield self._parent.take(np.arange(a, min(a + rows, self._stop),
+                                              dtype=np.int64))
+
+    def row(self, idx: int) -> np.ndarray:
+        if not 0 <= idx < self.n:
+            raise IndexError(f"row {idx} out of range for n={self.n}")
+        return self._parent.row(self._start + idx)
+
+    def take(self, indices) -> np.ndarray:
+        """Gather view rows: offset through to the parent."""
+        return self._parent.take(_check_take_indices(indices, self.n)
+                                 + self._start)
+
+    @property
+    def has_weights(self) -> bool:
+        return has_weights(self._parent)
+
+    def weights_of(self, start: int, rows: int) -> np.ndarray:
+        stop = min(start + rows, self.n)
+        return weights_of(self._parent, self._start + start,
+                          max(stop - start, 0))
+
+    def take_weights(self, indices) -> np.ndarray:
+        return take_weights(self._parent,
+                            _check_take_indices(indices, self.n) + self._start)
+
+    def materialize(self, device=None) -> torch.Tensor:
+        """The view's rows as one tensor on ``device`` (``None`` means
+        ``"cuda"``): one gather from the parent."""
+        return upload(self._parent.take(np.arange(self._start, self._stop,
+                                                  dtype=np.int64)),
+                      resolve_device(device))
+
+
+class ShardedSource:
+    """One point source per machine shard: the paper's input model.
+
+    The MapReduce formulation (§3) assumes the input is already partitioned
+    across machines. Shard ``s`` is a source of its own (host numpy, a disk
+    shard, a generator, or a ``SliceSource`` of a common parent), and the
+    global row order is the shards' concatenation. ``MeshExecutor`` streams
+    every shard's blocks in lockstep (``engine.zip_shard_blocks``), so no
+    host buffer holds all n rows.
+
+    Build it with ``shard_source(source, shards)`` (zero-copy contiguous
+    views of one source) or ``ShardedSource.from_per_host_shards([...])``
+    (shards that exist apart). As a plain source it is the concatenation:
+    ``blocks`` streams shard after shard, so a block never crosses a shard
+    boundary and each shard's last block may be short (value folds do not
+    depend on the blocking); ``take`` and ``row`` dispatch on the shard
+    offsets; ``materialize`` concatenates (for tests and small n, never on
+    the streamed paths).
+
+    >>> import numpy as np
+    >>> sh = ShardedSource([HostSource(np.zeros((3, 2), np.float32)),
+    ...                     HostSource(np.ones((2, 2), np.float32))])
+    >>> sh.n, sh.offsets.tolist(), sh.take([2, 3]).tolist()
+    (5, [0, 3, 5], [[0.0, 0.0], [1.0, 1.0]])
+    """
+
+    def __init__(self, shards: Sequence):
+        shards = list(shards)
+        if not shards:
+            raise ValueError("ShardedSource needs at least one shard")
+        for i, s in enumerate(shards):
+            if not is_source(s):
+                raise TypeError(
+                    f"shard {i} ({type(s).__name__}) is not a PointSource")
+        d = shards[0].d
+        for i, s in enumerate(shards):
+            if s.d != d:
+                raise ValueError(
+                    f"shard {i} has d={s.d}, expected d={d} (all shards "
+                    "must share one point dimension)")
+        self._shards = tuple(shards)
+        self._offsets = np.cumsum([0] + [s.n for s in shards])
+
+    @classmethod
+    def from_per_host_shards(cls, shards: Sequence) -> "ShardedSource":
+        """Wrap inputs that are already apart, one source per machine
+        (e.g. a ``MemmapSource`` over each machine's ``.npy`` shards). Shard
+        order is the global row order. No data moves."""
+        return cls(shards)
+
+    @property
+    def shards(self) -> tuple:
+        return self._shards
+
+    @property
+    def num_shards(self) -> int:
+        return len(self._shards)
+
+    @property
+    def offsets(self) -> np.ndarray:
+        """Global first row of each shard, then n: ``(num_shards + 1,)``."""
+        return self._offsets.copy()
+
+    @property
+    def max_shard_rows(self) -> int:
+        """Rows of the largest shard: the per-machine n that the residency
+        model (``engine.resolve_block_rows``) is solved against."""
+        return max(s.n for s in self._shards)
+
+    @property
+    def n(self) -> int:
+        return int(self._offsets[-1])
+
+    @property
+    def d(self) -> int:
+        return self._shards[0].d
+
+    def host_blocks(self, block_rows: int) -> Iterator[np.ndarray]:
+        """Numpy blocks, no device transfer: each shard's stream in shard
+        order (the global row order)."""
+        rows = _check_rows(block_rows)
+        for s in self._shards:
+            yield from host_blocks_of(s, rows)
+
+    def blocks(self, block_rows: int, *, prefetch: int = DEFAULT_PREFETCH,
+               device=None) -> Iterator[torch.Tensor]:
+        """Blocks uploaded to ``device`` (``None`` means ``"cuda"``) through
+        the pinned ring, shard after shard."""
+        return stream_device(self.host_blocks(block_rows), prefetch, device)
+
+    def weighted_blocks(self, block_rows: int, *,
+                        prefetch: int = DEFAULT_PREFETCH, device=None):
+        """``(points, weights)`` blocks on ``device``, each block's weights
+        (its shard's ``weights_of``, ones where a shard has none) in the
+        points' ring slot."""
+        rows = _check_rows(block_rows)
+
+        def pairs():
+            for s in self._shards:
+                pos = 0
+                for blk in host_blocks_of(s, rows):
+                    nb = blk.shape[0]
+                    yield blk, weights_of(s, pos, nb)
+                    pos += nb
+
+        return stream_device(pairs(), prefetch, device, paired=True)
+
+    def _locate(self, idx: np.ndarray) -> np.ndarray:
+        return np.searchsorted(self._offsets, idx, side="right") - 1
+
+    def row(self, idx: int) -> np.ndarray:
+        if not 0 <= idx < self.n:
+            raise IndexError(f"row {idx} out of range for n={self.n}")
+        s = int(self._locate(np.asarray([idx]))[0])
+        return np.asarray(self._shards[s].row(int(idx - self._offsets[s])),
+                          np.float32)
+
+    def take(self, indices) -> np.ndarray:
+        """Gather rows across shards: each shard's ``take`` is called once
+        with its share of the indices, in order."""
+        idx = _check_take_indices(indices, self.n)
+        out = np.empty((idx.size, self.d), np.float32)
+        shard = self._locate(idx)
+        for s in np.unique(shard):
+            sel = shard == s
+            out[sel] = np.asarray(
+                self._shards[s].take(idx[sel] - self._offsets[s]),
+                np.float32)
+        return out
+
+    @property
+    def has_weights(self) -> bool:
+        return any(has_weights(s) for s in self._shards)
+
+    def weights_of(self, start: int, rows: int) -> np.ndarray:
+        stop = min(start + rows, self.n)
+        out = np.ones((max(stop - start, 0),), np.float32)
+        pos = start
+        while pos < stop:
+            s = int(self._locate(np.asarray([pos]))[0])
+            off = int(self._offsets[s])
+            hi = min(stop, int(self._offsets[s + 1]))
+            out[pos - start:hi - start] = weights_of(
+                self._shards[s], pos - off, hi - pos)
+            pos = hi
+        return out
+
+    def take_weights(self, indices) -> np.ndarray:
+        idx = _check_take_indices(indices, self.n)
+        out = np.ones((idx.size,), np.float32)
+        shard = self._locate(idx)
+        for s in np.unique(shard):
+            sel = shard == s
+            out[sel] = take_weights(self._shards[s],
+                                    idx[sel] - self._offsets[s])
+        return out
+
+    def materialize(self, device=None) -> torch.Tensor:
+        """All rows as one tensor on ``device`` (``None`` means
+        ``"cuda"``)."""
+        return torch.cat([torch.from_numpy(np.array(b, np.float32))
+                          for b in self.host_blocks(1 << 20)]).to(
+                              resolve_device(device))
+
+
 class WeightedSource:
     """Any source plus per-row f32 weights: a weighted instance.
 
@@ -670,9 +937,16 @@ class WeightedSource:
         the same ring slot (``stream_device``); a device-resident parent's
         zero-copy slices come with slices of the weights, uploaded once."""
         if hasattr(self._parent, "host_blocks"):
-            return stream_device(self._parent.host_blocks(block_rows),
-                                 prefetch, device, weights=self._w)
+            return stream_device(self._host_pairs(block_rows), prefetch,
+                                 device, paired=True)
         return self._resident_weighted_blocks(block_rows, prefetch, device)
+
+    def _host_pairs(self, block_rows: int):
+        off = 0
+        for blk in self._parent.host_blocks(block_rows):
+            nb = blk.shape[0]
+            yield blk, self._w[off:off + nb]
+            off += nb
 
     def _resident_weighted_blocks(self, block_rows, prefetch, device):
         w_dev, off = None, 0
@@ -691,6 +965,60 @@ class WeightedSource:
 
     def materialize(self, device=None) -> torch.Tensor:
         return self._parent.materialize(device)
+
+
+def _shard_count(shards, shard_axes=None) -> int:
+    """Shard count from an int, a ``Mesh`` (the product of the
+    ``shard_axes`` sizes; default: every axis), or anything with
+    ``num_shards`` (a ``MeshExecutor``, a ``ShardedSource``)."""
+    if isinstance(shards, (int, np.integer)):
+        return int(shards)
+    if hasattr(shards, "num_shards"):
+        return int(shards.num_shards)
+    if hasattr(shards, "shape") and hasattr(shards, "axis_names"):   # Mesh
+        axes = (tuple(shard_axes) if shard_axes is not None
+                else tuple(shards.axis_names))
+        count = 1
+        for ax in axes:
+            count *= int(shards.shape[ax])
+        return count
+    raise TypeError(
+        f"shards must be an int, a Mesh, or expose num_shards; got "
+        f"{type(shards).__name__}")
+
+
+def shard_source(source, shards, *, shard_axes=None) -> ShardedSource:
+    """Split ``source`` into a ``ShardedSource`` of contiguous row views.
+
+    ``shards`` is a shard count, a ``Mesh`` (the product of the
+    ``shard_axes`` sizes; default: every axis) or a ``MeshExecutor``. The
+    split is the paper's: ``per = ceil(n / S)`` rows a machine, machine
+    ``i`` holding rows ``[i·per, min((i+1)·per, n))``, which is
+    ``SimExecutor``'s blocking, so sharded runs compare bitwise with the
+    simulated machines. Each shard is a ``SliceSource``: nothing is copied.
+    A ``ShardedSource`` passes through when its shard count matches and
+    raises when it does not (a mis-sharded input re-split in silence would
+    hide a partitioning fault).
+
+    >>> import numpy as np
+    >>> sh = shard_source(HostSource(np.zeros((10, 2), np.float32)), 4)
+    >>> [s.n for s in sh.shards], sh.num_shards
+    ([3, 3, 3, 1], 4)
+    """
+    src = as_source(source)
+    count = _shard_count(shards, shard_axes)
+    if count < 1:
+        raise ValueError(f"need at least one shard, got {count}")
+    if isinstance(src, ShardedSource):
+        if src.num_shards != count:
+            raise ValueError(
+                f"source is already sharded {src.num_shards} ways, "
+                f"expected {count} — re-shard explicitly if intended")
+        return src
+    per = -(-src.n // count)
+    return ShardedSource([
+        SliceSource(src, min(i * per, src.n), min((i + 1) * per, src.n))
+        for i in range(count)])
 
 
 def _philox_at(seed: int, offset: int) -> np.random.Generator:

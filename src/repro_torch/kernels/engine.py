@@ -13,7 +13,8 @@ The kernel route needs a CUDA tensor on a device of compute capability 9.x
 (``_build.require_hopper``); it launches the kernel or raises, and never
 falls back to the plain version.
 
-The source folds (``fold_min_d2``, ``fold_top_k_min_d2``,
+The mesh's lockstep steps over its shards' host streams are
+``zip_shard_blocks``. The source folds (``fold_min_d2``, ``fold_top_k_min_d2``,
 ``assign_nearest_source``, ``assign_sums_source``,
 ``argmin_dist2_over_source``) stream a point
 source in super-shards of ``block_rows`` rows through its upload ring, so
@@ -443,6 +444,95 @@ def host_blocks_of(source, rows: int):
         return
     for blk in source.blocks(rows, device="cpu"):
         yield blk.numpy()
+
+
+def zip_shard_blocks(shards, rows: int, *, with_weights: bool = False,
+                     local_ids=None):
+    """The mesh's per-shard streams in lockstep, on the host.
+
+    Yields ``(pts (S, rows, d) f32, counts (S,) int64)`` a step: each
+    shard's next block, zero-padded to the common ``rows`` (the executor
+    makes masks from ``counts``), until every shard is exhausted. A shard
+    that runs out early contributes all-padding steps with ``counts == 0``.
+    The host working set is one step, ``S·rows·d`` floats, never a shard.
+
+    ``with_weights=True`` puts each shard's per-row f32 weights between the
+    points and the counts, ``(pts, w (S, rows), counts)``, padded rows at
+    weight 0, taken per shard from its ``weights_of`` (ones where it has
+    none) at a per-shard row cursor.
+
+    ``local_ids`` (shard indices, or ``None`` for all) is the multi-process
+    form: a shard not in it is never read, its slot in ``pts`` (then a list
+    of ``(rows, d)`` arrays) is ``None``, and its ``counts`` still follow
+    from its size and a cursor, so every process sees the same steps.
+
+    >>> import numpy as np
+    >>> from repro_torch.data.source import HostSource
+    >>> a = HostSource(np.ones((3, 1), np.float32))
+    >>> b = HostSource(np.ones((1, 1), np.float32))
+    >>> [c.tolist() for _, c in zip_shard_blocks([a, b], 2)]
+    [[2, 1], [1, 0]]
+    """
+    if rows < 1:
+        raise ValueError(f"rows must be >= 1, got {rows}")
+    shards = list(shards)
+    if not shards:
+        raise ValueError("zip_shard_blocks needs at least one shard")
+    local = (set(range(len(shards))) if local_ids is None
+             else {int(i) for i in local_ids})
+    sparse = local_ids is not None
+    if sparse and with_weights:
+        raise NotImplementedError(
+            "weighted lockstep steps are not supported with non-local "
+            "shards (no weighted multi-process caller exists)")
+    d = shards[0].d
+    its = [host_blocks_of(s, rows) if i in local else None
+           for i, s in enumerate(shards)]
+    pos = [0] * len(shards)
+    while True:
+        if sparse:
+            pts = [None] * len(shards)
+        else:
+            pts = np.zeros((len(shards), rows, d), np.float32)
+        w = np.zeros((len(shards), rows), np.float32) if with_weights else None
+        counts = np.zeros((len(shards),), np.int64)
+        any_rows = False
+        for s, it in enumerate(its):
+            if it is None:
+                # a shard of another process: its counts without a read
+                nb = min(rows, shards[s].n - pos[s])
+                if nb <= 0:
+                    continue
+                pos[s] += nb
+                counts[s] = nb
+                any_rows = True
+                continue
+            blk = next(it, None)
+            if blk is None:
+                continue
+            nb = blk.shape[0]
+            if nb > rows:
+                raise ValueError(
+                    f"shard {s} yielded a {nb}-row block for "
+                    f"block_rows={rows}")
+            if sparse:
+                piece = np.zeros((rows, d), np.float32)
+                piece[:nb] = blk
+                pts[s] = piece
+            else:
+                pts[s, :nb] = blk
+            if with_weights:
+                w[s, :nb] = _source_weights(shards[s], pos[s], nb)
+            pos[s] += nb
+            counts[s] = nb
+            if nb:
+                any_rows = True
+        if not any_rows:
+            return
+        if with_weights:
+            yield pts, w, counts
+        else:
+            yield pts, counts
 
 
 def _source_blocks(source, rows: int, prefetch: int | None, device):

@@ -26,7 +26,7 @@ from repro.data import source as jsource
 from repro.kernels import engine as jengine
 from repro.kernels import fused_stream as jfs
 from repro_torch.core import (HostStreamExecutor, SimExecutor,
-                              covering_radius, gonzalez, mrg,
+                              covering_radius, gonzalez, mrg, mrg_distributed,
                               select_coreset)
 from repro_torch.data import pointsets
 from repro_torch.data.source import HostSource, MemmapSource, synthetic_source
@@ -36,6 +36,7 @@ from repro_torch.kernels.fused_stream import (argmin_carry,
                                               fused_assign_cuda,
                                               fused_filter_cuda,
                                               unpack_argmin)
+from repro_torch.launch import make_mesh
 
 TOL = dict(rtol=1e-4, atol=1e-4)     # tests/test_kernels.py (f32 d2)
 R2_RTOL = 1e-6                       # tests/test_torch_mrg.py (radius2)
@@ -397,8 +398,12 @@ def test_unported_options_raise():
                        engine.pairwise_dist2(c, c))
     assert torch.equal(mrg(src, 4, chunk=8, device="cpu").centers,
                        mrg(src, 4, device="cpu").centers)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        select_coreset(x, 4, mesh=object(), device="cpu")
+    # mesh= is ported: the fused mesh path's centers; device= is the mesh's
+    mesh = make_mesh((4,), ("data",), device="cpu")
+    assert torch.equal(select_coreset(x, 4, mesh=mesh).centers,
+                       mrg_distributed(x, 4, mesh)[0])
+    with pytest.raises(ValueError, match="mesh"):
+        select_coreset(x, 4, mesh=mesh, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(
         select_coreset(x, 4, chunk=8, device="cpu"),
         select_coreset(x, 4, device="cpu")))
