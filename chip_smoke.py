@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port of MRG (paper Algorithm 1), coreset
 selection, the weighted and outlier objectives, the streaming sketch, EIM
 (paper §4), the online k-center service and the paper's machines as mesh
-shards on one GPU, in memory and out of core.
+shards and as separate processes on one GPU, in memory and out of core.
 
     python3 chip_smoke.py        # from the root of a checkout, one Hopper card
 
@@ -154,6 +154,23 @@ Phases, each of which raises on failure (nothing is caught):
               eim on kddlike n = 4e6 (key 1), each bitwise
               HostStreamExecutor's, and select_coreset(mesh=) on kddlike
               n = 400,000, k = 100 against impl="ref".
+  13. the machines as separate processes (``repro_torch.launch.cluster``:
+              worker processes over one gloo group, every worker on the
+              card, each with only its own shards, a ProcessShardedSource
+              of SliceSources): 13a 12c's unif generator over 2 processes
+              of 4 shards (S = 8, 64 MiB a shard), mrg k = 25 and eim (key
+              1); 13b kddlike n = 4e6 written once to a .npy file, each of
+              4 processes memory-mapping its own rows (256 MiB a shard),
+              mrg k = 100. Each worker checks its own runs (synchronising
+              calls exactly 2 in mrg and 2 an iteration + 1 in eim; GON
+              launches k x (steps + levels); peak device memory within its
+              shards' budgets + 2 unions + 16 MiB; every local row read
+              once a pass, no other; no jax) and prints its device,
+              launches, syncs, peak, rows read and walls on a line of its
+              own; the parent holds every process's centers, radius2,
+              rounds and EIM sample bitwise against the one-process
+              MeshExecutor over the same shards (12c's run for 13a's mrg).
+              A failed worker fails the phase.
 
 Prints the card's name and power limit, one JSON line describing every
 kernel, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -173,6 +190,12 @@ prints them side by side with a SHA-1 digest of each form's outputs, so
 that equal digests show bitwise equal results. To compare a change with
 its parent on one card, unpack the parent with ``git archive`` into a
 git-ignored directory and name the trees parent, change, change, parent.
+
+    python3 chip_smoke.py --cluster nccl     # on a host with 4 cards
+
+runs the build and phase 13's cases alone with ``backend="nccl"``, a card
+a worker (``cuda:{rank}``), each process's results held bitwise against
+the one-process MeshExecutor as in phase 13.
 """
 from __future__ import annotations
 
@@ -2419,16 +2442,17 @@ def eim_syncs(kind, iters):
     return iters + 2 if kind == "device" else 2 * iters
 
 
-def streamed_allowance(ex, src, k, c_size):
+def streamed_allowance(ex, src, k, c_size, shards=1):
     """Device memory a streamed eim run may take beyond what was allocated
     before it: the ring's residency model at the budget, the S buffer
     (s_cap·d·4), the tile tops and their merge (twice ceil(rows / 256)·rank
     f32), a block's ds and H mask (two blocks' live), the ragged block
     padded to rows, the sampler's int64 words (SAMPLE_ROWS rows, 16 words
     a row), the final GON's gathered sample padded to a power of two (its
-    points twice while padded, its md) and phase 5's slack."""
+    points twice while padded, its md) and phase 5's slack. A mesh step
+    holds the rows of ``shards`` shards (a process's, phase 13)."""
     from repro_torch.core.eim import SAMPLE_ROWS, _compact_cap
-    rows, d = ex.rows_for(src), src.d
+    rows, d = ex.rows_for(src) * shards, src.d
     _, s_cap, rank = eim_params(src.n, k)
     cap = _compact_cap(c_size, src.n)
     return ((ex.prefetch + 1) * 4 * rows * (d + 1) + 4 * s_cap * d
@@ -3049,6 +3073,7 @@ MESH_FUSED = [("12a", "unif", 1_000_000, 2, 25, (50,), ("data",), False),
 MESH_STREAMED = [("unif", 10_000_000, 8, 64 * MiB, 25),    # phase 5's sources
                  ("kddlike", 4_000_000, 4, 256 * MiB, 25)]
 MESH_SHARDS = 4                      # 12d's mesh
+MESH_REFS = {}         # 12c's runs by (generator, S, budget, k), for phase 13
 MESH_BUDGET = 256 * MiB              # 12d's per-shard budget
 MESH_CORESET = (400_000, 100)        # 12d's select_coreset(mesh=): n, k
 
@@ -3163,6 +3188,7 @@ def phase_mesh(torch, engine, P, counters):
         host = mrg(sh, k, executor=HostStreamExecutor(block_rows=rows))
         check(same_mrg(res, host), f"{label}: differs from HostStreamExecutor "
               f"at block_rows={rows}")
+        MESH_REFS[(gen, S, budget, k)] = (res, wall)
         ref = fn("ref")
         r2, r2_ref = res.radius2.item(), ref.radius2.item()
         check(torch.equal(res.centers, ref.centers) and res.rounds == ref.rounds
@@ -3253,6 +3279,298 @@ def phase_mesh(torch, engine, P, counters):
           f"{moved} near_tie_rows={ties} radius2={res.radius2.item()!r} "
           f"wall_ms={wall:.3f} launches={launches} sync_warnings={len(syncs)}",
           flush=True)
+    return totals
+
+
+# Phase 13: the paper's machines as separate processes. ``launch_cluster``
+# starts the workers (gloo, every worker on cuda:0: NCCL refuses two ranks
+# on one GPU); each builds the cluster mesh, reads only its own shards (a
+# ProcessShardedSource over SliceSources of the common input) and runs the
+# streamed path in its own CUDA context. 13a: 12c's unif generator over 2
+# processes of 4 shards (S = 8, 64 MiB a shard), mrg k=25 and eim (key 1);
+# 13b: kddlike n = 4e6 in one .npy file, memory-mapped by 4 processes of one
+# shard (256 MiB a shard), mrg k=100. Every process's results are held
+# bitwise against the one-process MeshExecutor run over the same shards.
+CLUSTER_CASES = {
+    "13a": dict(gen="unif", n=10_000_000, d=2, procs=2, spp=4,
+                budget=64 * MiB, k=25, eim=True),
+    "13b": dict(gen="kddlike", n=4_000_000, d=38, procs=4, spp=1,
+                budget=256 * MiB, k=100, eim=False),
+}
+CLUSTER_TIMEOUT = 300.0      # each run's hard deadline, and its groups' timeout
+
+
+class RowSpy:
+    """A process's shard that counts the rows it reads: by blocks (the
+    folds) and by ``take`` (the candidate exchange)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.block_rows = 0
+        self.take_rows = 0
+
+    @property
+    def n(self):
+        return self.inner.n
+
+    @property
+    def d(self):
+        return self.inner.d
+
+    def host_blocks(self, rows):
+        for blk in self.inner.host_blocks(rows):
+            self.block_rows += blk.shape[0]
+            yield blk
+
+    def blocks(self, rows, *, prefetch=2, device=None):
+        from repro_torch.data.source import stream_device
+        return stream_device(self.host_blocks(rows), prefetch, device)
+
+    def take(self, indices):
+        idx = np.asarray(indices).reshape(-1)
+        self.take_rows += idx.size
+        return self.inner.take(idx)
+
+    def row(self, idx):
+        return self.take([idx])[0]
+
+
+def kernel_counters():
+    """Every kernel wrapper, by its name in the kernel line."""
+    from repro_torch.kernels.assign import (assign_nearest_batched_cuda,
+                                            assign_nearest_cuda, assign_sums_cuda)
+    from repro_torch.kernels.fused_argfar import fused_min_argmax_cuda
+    from repro_torch.kernels.fused_stream import (fused_argmin_cuda,
+                                                  fused_assign_cuda,
+                                                  fused_filter_cuda,
+                                                  fused_filter_w_cuda)
+    from repro_torch.kernels.pairwise import pairwise_dist2_cuda
+    return {"gon_step": fused_min_argmax_cuda, "assign": assign_nearest_cuda,
+            "fused_filter": fused_filter_cuda, "fused_assign": fused_assign_cuda,
+            "assign_sums": assign_sums_cuda, "argmin_rows": fused_argmin_cuda,
+            "fused_filter_w": fused_filter_w_cuda,
+            "assign_batched": assign_nearest_batched_cuda,
+            "pairwise": pairwise_dist2_cuda}
+
+
+def cluster_split(n, shards):
+    """``shard_source``'s split of n rows: the offsets of the shards."""
+    per = -(-n // shards)
+    return [min(i * per, n) for i in range(shards + 1)]
+
+
+def cluster_worker(ctx) -> dict:
+    """Phase 13's scenario, run by every worker process (``launch_cluster``
+    loads it from this file): this process's shards of the case's input,
+    ``mrg`` (and ``eim``) over the cluster mesh on its card, each run
+    counted (launches, synchronising calls, peak device memory, rows read)
+    and checked here. A failed check fails this worker, and so the run."""
+    import torch
+
+    from repro_torch import compat
+    from repro_torch.core import HostStreamExecutor, MeshExecutor, eim, mrg
+    from repro_torch.data.source import (HostSource, MemmapSource,
+                                         ProcessShardedSource, SliceSource,
+                                         synthetic_source)
+    from repro_torch.launch import make_cluster_mesh
+    # count the host exchanges: over gloo they move host tensors, over NCCL
+    # each also reads its result back from the GPU (one more sync apiece)
+    exchange, exchanges = compat.exchange_host, [0]
+
+    def counted_exchange(x):
+        exchanges[0] += 1
+        return exchange(x)
+
+    compat.exchange_host = counted_exchange
+    per_exchange = int(ctx.backend == "nccl")
+    case = CLUSTER_CASES[ctx.args["case"]]
+    n, d, spp, k, budget = (case[key] for key in ("n", "d", "spp", "k", "budget"))
+    pid, procs = ctx.process_id, ctx.num_processes
+    check(procs == case["procs"], f"{procs} processes for {ctx.args['case']}")
+    S = procs * spp
+    offs = cluster_split(n, S)
+    base = (synthetic_source("unif", n, d=d, seed=0) if case["gen"] == "unif"
+            else MemmapSource(ctx.args["path"]))
+    check((base.n, base.d) == (n, d), f"input {(base.n, base.d)}")
+    mine = [RowSpy(SliceSource(base, offs[s], offs[s + 1]))
+            for s in range(pid * spp, (pid + 1) * spp)]
+    src = ProcessShardedSource.for_process(
+        mine, [offs[i + 1] - offs[i] for i in range(S)], pid)
+    mesh = make_cluster_mesh(shards_per_process=spp)   # this process's card
+    dev = mesh.device
+    check(dev.type == "cuda", f"process {pid} runs on {dev}")
+    ex = MeshExecutor(mesh, memory_budget=budget)
+    rows = ex.rows_for(src)
+    steps = -(-src.max_shard_rows // rows)
+    local_n = sum(s.n for s in mine)
+    counters = kernel_counters()
+    # this process's CUDA context and kernels come up on a small input first
+    mrg(HostSource(np.random.default_rng(pid).random((4096, d), np.float32)), 3,
+        executor=HostStreamExecutor(block_rows=1024, device=dev))
+    out = {"device": torch.cuda.get_device_name(dev), "cuda": str(dev),
+           "backend": ctx.backend,
+           "local_shards": list(src.local_shard_ids),
+           "remote_shards": S - len(src.local_shard_ids), "local_rows": local_n,
+           "rows": rows, "steps": steps}
+    exchanges[0] = 0
+    t0 = time.perf_counter()
+    res, launches, syncs, _, peak = counted_run(
+        torch, lambda: mrg(src, k, executor=ex), counters)
+    wall = (time.perf_counter() - t0) * 1e3
+    report_syncs(syncs)
+    moved = exchanges[0]
+    union = S * steps * k
+    allowed = spp * budget + 2 * union * (4 * d + 1) + PEAK_SLACK
+    read = sum(s.block_rows for s in mine)
+    label = f"{ctx.args['case']} process {pid} mrg"
+    check(len(syncs) == 2 + per_exchange * moved,
+          f"{label}: {len(syncs)} synchronising calls, not 2 (the union's read "
+          f"and the radius's) + {per_exchange} for each of {moved} exchanges")
+    check(launches["gon_step"] == k * (steps + res.rounds - 1)
+          and launches["fused_filter"] > 0, f"{label}: launches {launches}")
+    check(peak <= allowed, f"{label}: peak {peak} bytes above {allowed}")
+    check(read == 2 * local_n and not any(s.take_rows for s in mine),
+          f"{label}: read {read} rows of its {local_n} (round 1 and the radius "
+          "read each once)")
+    out["mrg"] = {"centers": res.centers.cpu().numpy().tolist(),
+                  "radius2": res.radius2.item(), "rounds": res.rounds,
+                  "wall_ms": wall, "launches": launches, "syncs": len(syncs),
+                  "exchanges": moved, "peak_MiB": peak / MiB,
+                  "allowed_MiB": allowed / MiB, "rows_read": read}
+    if case["eim"]:
+        for s in mine:
+            s.block_rows = s.take_rows = 0
+        exchanges[0] = 0
+        t0 = time.perf_counter()
+        res, launches, syncs, _, peak = counted_run(
+            torch, lambda: eim(src, k, EIM_KEY, executor=ex), counters)
+        wall = (time.perf_counter() - t0) * 1e3
+        report_syncs(syncs)
+        moved = exchanges[0]
+        st = eim_stats(res, n, k)
+        allowed = streamed_allowance(ex, src, k, st["C"], shards=spp)
+        read = sum(s.block_rows for s in mine)
+        label = f"{ctx.args['case']} process {pid} eim"
+        check(len(syncs) == 2 * st["iters"] + 1 + per_exchange * moved,
+              f"{label}: {len(syncs)} synchronising calls for {st['iters']} "
+              "iterations (2 an iteration and the radius's read expected, + "
+              f"{per_exchange} for each of {moved} exchanges)")
+        check(launches["gon_step"] > 0 and launches["fused_filter"] > 0,
+              f"{label}: launches {launches}")
+        check(peak <= allowed, f"{label}: peak {peak} bytes above {allowed}")
+        check(read == (st["iters"] + 1) * local_n,
+              f"{label}: read {read} block rows of its {local_n} (each filter "
+              "round and the radius read each once: no compaction)")
+        out["eim"] = {"centers": res.centers.cpu().numpy().tolist(),
+                      "radius2": res.radius2.item(),
+                      "sample": digest(res.sample.sample_mask, res.sample.s_mask),
+                      "stats": st, "wall_ms": wall, "launches": launches,
+                      "syncs": len(syncs), "exchanges": moved,
+                      "peak_MiB": peak / MiB,
+                      "allowed_MiB": allowed / MiB, "rows_read": read,
+                      "take_rows": sum(s.take_rows for s in mine)}
+    out["jax_imported"] = "jax" in sys.modules
+    check(not out["jax_imported"], f"process {pid} imported jax")
+    return out
+
+
+def same_centers(v, centers, radius2) -> bool:
+    """A worker's centers and radius2 (JSON floats, exact for f32) bitwise the
+    one-process run's."""
+    return (np.array_equal(np.asarray(v["centers"], np.float32),
+                           centers.cpu().numpy())
+            and np.float32(v["radius2"]) == np.float32(radius2.item()))
+
+
+def phase_cluster(torch, P, counters, backend="gloo"):
+    """Phase 13 over ``backend``: gloo with every worker on the one card, or
+    NCCL with a card a worker (``--cluster nccl``)."""
+    where = ("every worker on the card" if backend == "gloo"
+             else "a card a worker")
+    print(f"== phase 13: the machines as separate processes (launch_cluster, "
+          f"{backend}, {where}), each process's results against the "
+          "one-process MeshExecutor over the same shards", flush=True)
+    from repro_torch.core import MeshExecutor, eim, mrg
+    from repro_torch.data.source import HostSource, shard_source, synthetic_source
+    from repro_torch.launch import make_mesh, run_scenario
+    totals = {name: 0 for name in counters}
+    target = f"{os.path.abspath(__file__)}:cluster_worker"
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    torch.cuda.empty_cache()           # the workers share the card
+    for tag, case in CLUSTER_CASES.items():
+        n, d, k, procs, spp = (case[key] for key in ("n", "d", "k", "procs", "spp"))
+        S = procs * spp
+        ex = MeshExecutor(make_mesh((S,), ("data",)), memory_budget=case["budget"])
+        label = (f"{tag} {case['gen']} n={n} d={d} k={k} P={procs} x {spp} "
+                 f"shard(s) = S={S} at {case['budget'] // MiB} MiB a shard")
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            args = {"case": tag}
+            if case["gen"] == "unif":
+                sh = shard_source(synthetic_source("unif", n, d=d, seed=0), S)
+            else:
+                x = kdd_host(P)
+                args["path"] = os.path.join(tmp, "kddlike.npy")
+                t0 = time.perf_counter()
+                np.save(args["path"], x)
+                print(f"{tag}: the .npy written in "
+                      f"{time.perf_counter() - t0:.2f} s", flush=True)
+                sh = shard_source(HostSource(x), S)
+            ref_key = (case["gen"], S, case["budget"], k)
+            if ref_key in MESH_REFS:             # 12c's run, the same shards
+                ref, ref_wall = MESH_REFS[ref_key]
+            else:
+                t0 = time.perf_counter()
+                ref = mrg(sh, k, executor=ex)
+                torch.cuda.synchronize()
+                ref_wall = (time.perf_counter() - t0) * 1e3
+            ref_eim = None
+            if case["eim"]:
+                t0 = time.perf_counter()
+                ref_eim = eim(sh, k, EIM_KEY, executor=ex, compact_threshold=0)
+                ref_eim_wall = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            verdicts = run_scenario(target, procs, args=args,
+                                    timeout=CLUSTER_TIMEOUT, backend=backend)
+            cluster_s = time.perf_counter() - t0
+        if backend == "nccl":
+            check(sorted(v["cuda"] for v in verdicts)
+                  == [f"cuda:{i}" for i in range(procs)],
+                  f"{label}: not one card a worker")
+        for v in verdicts:
+            m = v["mrg"]
+            check(same_centers(m, ref.centers, ref.radius2)
+                  and m["rounds"] == ref.rounds,
+                  f"{label}: process {v['process_id']}'s mrg differs from the "
+                  "one-process MeshExecutor's")
+            line = {key: v[key] for key in ("process_id", "device", "cuda",
+                                             "backend",
+                                             "local_shards", "remote_shards",
+                                             "local_rows", "rows", "steps",
+                                             "jax_imported")}
+            line["mrg"] = {key: m[key] for key in m if key != "centers"}
+            for name, c in m["launches"].items():
+                totals[name] += c
+            if ref_eim is not None:
+                e = v["eim"]
+                check(same_centers(e, ref_eim.centers, ref_eim.radius2)
+                      and e["sample"] == digest(ref_eim.sample.sample_mask,
+                                                ref_eim.sample.s_mask)
+                      and e["stats"] == eim_stats(ref_eim, n, k),
+                      f"{label}: process {v['process_id']}'s eim differs from "
+                      "the one-process MeshExecutor's")
+                line["eim"] = {key: e[key] for key in e if key != "centers"}
+                for name, c in e["launches"].items():
+                    totals[name] += c
+            print(f"{tag} worker: {json.dumps(line)}", flush=True)
+        note = (f"one_process_mrg_wall_ms={ref_wall:.3f}" if ref_eim is None else
+                f"one_process_mrg_wall_ms={ref_wall:.3f} "
+                f"one_process_eim_wall_ms={ref_eim_wall:.3f} "
+                f"eim_iterations={int(ref_eim.sample.iters)}")
+        print(f"{label}: ok every process bitwise the one-process MeshExecutor "
+              f"(centers, radius2, rounds{', EIM sample' if ref_eim is not None else ''}) "
+              f"radius2={ref.radius2.item()!r} rounds={ref.rounds} {note} "
+              f"cluster_seconds={cluster_s:.2f}", flush=True)
     return totals
 
 
@@ -3447,14 +3765,7 @@ def main() -> int:
     from repro_torch.data import pointsets as P
     from repro_torch.data.source import HostSource
     from repro_torch.kernels import _build, engine
-    from repro_torch.kernels.assign import (assign_nearest_batched_cuda,
-                                            assign_nearest_cuda, assign_sums_cuda)
-    from repro_torch.kernels.fused_argfar import fused_min_argmax_cuda
-    from repro_torch.kernels.fused_stream import (fused_argmin_cuda,
-                                                  fused_assign_cuda,
-                                                  fused_filter_cuda,
-                                                  fused_filter_w_cuda)
-    from repro_torch.kernels.pairwise import pairwise_dist2_cuda
+    wrappers = kernel_counters()
     check("jax" not in sys.modules, "jax was imported")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3499,18 +3810,19 @@ def main() -> int:
     pairwise_edge_cases(torch, engine, rng)
     alike = phase_eim_shapes(torch, engine, P, rng, results)
     phase_ring(torch, P)
-    counters = {"gon_step": fused_min_argmax_cuda, "assign": assign_nearest_cuda}
+    # each phase counts the kernels its paths may launch, so far
+    def counting(*names):
+        return {name: wrappers[name] for name in names}
+    counters = counting("gon_step", "assign")
     totals = phase_mrg(torch, mrg, counters, P)
     phase_small_vs_cpu(torch, mrg, P)
     for gen, n, d, k in PROFILE_CONFIGS:
-        phase_profile(torch, mrg, P, gen, n, d, k, fused_min_argmax_cuda)
-    counters.update(fused_filter=fused_filter_cuda, fused_assign=fused_assign_cuda,
-                    assign_sums=assign_sums_cuda, argmin_rows=fused_argmin_cuda)
+        phase_profile(torch, mrg, P, gen, n, d, k, wrappers["gon_step"])
+    counters.update(counting("fused_filter", "fused_assign", "assign_sums",
+                             "argmin_rows"))
     stream_totals = phase_streamed(torch, engine, P, counters)
     phase_stream_profile(torch, P)
-    counters.update(fused_filter_w=fused_filter_w_cuda,
-                    assign_batched=assign_nearest_batched_cuda,
-                    pairwise=pairwise_dist2_cuda)
+    counters.update(counting("fused_filter_w", "assign_batched", "pairwise"))
     weighted_totals = phase_weighted(torch, engine, P, rng, counters)
     sketch_totals, sketch_states = phase_sketch(torch, P, counters)
     phase_kz_profile(torch, P, rng)
@@ -3522,6 +3834,7 @@ def main() -> int:
     serve_ingest_totals = phase_serve(torch, engine, P, counters, kdd_sketch,
                                       HostSource(kdd_host(P)))
     mesh_totals = phase_mesh(torch, engine, P, counters)
+    cluster_totals = phase_cluster(torch, P, counters)
 
     # times at each path's first shape on float inputs — in memory: GON step
     # m=50, per=20000, d=2; assign n=1e6, k=25, d=2 (paper Fig. 4); streamed:
@@ -3532,7 +3845,8 @@ def main() -> int:
     # phase 9's round 1 (1 x 573,580 rows, t=125, d=38), pairwise at the
     # sketch's (101, 101, 38) bootstrap in f32. Launches: every launch of the
     # kernel's wrapper in the counted runs of phases 3, 5, 7, 8, 10 and 12,
-    # and phase 11's deterministic ones (11a's assign_bucketed calls, 11c's
+    # phase 13's workers' counted runs (each counted in its own process), and
+    # phase 11's deterministic ones (11a's assign_bucketed calls, 11c's
     # ingest), each counted once, by the wrapper that made it (the streamed and batched
     # assign's cluster sums take the sums entry: assign_sums, not
     # fused_assign or assign_batched). max_abs_err over every check of the
@@ -3568,7 +3882,8 @@ def main() -> int:
         launches = sum(t.get(name, 0) for t in (totals, stream_totals,
                                                 weighted_totals, sketch_totals,
                                                 eim_totals, serve_totals,
-                                                serve_ingest_totals, mesh_totals))
+                                                serve_ingest_totals, mesh_totals,
+                                                cluster_totals))
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": max(r["err"] for r in mine),
@@ -3586,7 +3901,33 @@ def main() -> int:
     return 0
 
 
+def cluster_main(backend: str) -> int:
+    """``--cluster nccl``: the kernels' build, then phase 13's cases over
+    ``backend`` alone, each worker on a card of its own (13b takes 4)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+    from repro_torch.data import pointsets as P
+    from repro_torch.kernels import _build
+    need = max(case["procs"] for case in CLUSTER_CASES.values())
+    check(backend == "gloo" or torch.cuda.device_count() >= need,
+          f"--cluster {backend} needs {need} cards, this host has "
+          f"{torch.cuda.device_count()}")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=index,name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip(),
+          flush=True)
+    _build.build()
+    totals = phase_cluster(torch, P, kernel_counters(), backend)
+    print(json.dumps({"cluster": backend, "launches": totals}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cluster"] and len(sys.argv) == 3:
+        sys.exit(cluster_main(sys.argv[2]))
     if sys.argv[1:2] == ["--times"] and len(sys.argv) > 2:
         sys.exit(compare_times(sys.argv[2:]))
     if sys.argv[1:2] == ["--times-of"] and len(sys.argv) == 3:

@@ -40,6 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import compat
 from repro_torch.data.source import (ArraySource, IndexedSource, as_source,
                                      is_source)
 from repro_torch.device import as_points, resolve_device, upload
@@ -179,7 +180,8 @@ def eim_sample(points, k: int, key, *, eps: float = 0.1, phi: float = 8.0,
     ``compact_threshold`` (streamed loop only): when the surviving |R|
     falls under this fraction of the current view, the fold is re-pointed
     at an ``IndexedSource`` of the survivors. 0 never compacts, 1 compacts
-    after every shrinking iteration; the sample does not depend on it.
+    after every shrinking iteration; the sample does not depend on it. A
+    run of several processes never compacts.
 
     ``chunk`` (rows) bounds the plain route's (chunk, s_cap) distance
     tiles (``engine.resolve_chunk``); the sample does not change.
@@ -486,7 +488,11 @@ def _stream_loop(source, executor, key, r_mask, s_mask, d_s, threshold,
         if np.float32(live) <= np.float32(threshold):
             break                          # the loop is over
         cur = n if view_idx is None else len(view_idx)
-        if live < compact_threshold * cur and live < cur:
+        # Several processes never compact: an IndexedSource view would read
+        # its blocks through the collective ProcessShardedSource.take with
+        # different rows on each process. The sample does not depend on it.
+        if (live < compact_threshold * cur and live < cur
+                and compat.process_count() == 1):
             if view is not source:
                 executor.end_filter_rounds(view)
             if view_idx is not None:

@@ -12,7 +12,10 @@
     axis at a time with a GON a level when ``hierarchical``), the final
     GON and the radius. A point source is split into the paper's
     contiguous machine ranges (``ShardedSource``) and streamed shard by
-    shard in lockstep, under a per-shard ``memory_budget``.
+    shard in lockstep, under a per-shard ``memory_budget``. Under several
+    processes (``repro_torch.launch.cluster``) each process streams its own
+    shards, and the processes exchange host values
+    (``repro_torch.compat``).
 
 Their interface is the JAX package's:
 
@@ -58,6 +61,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch import compat
 from repro_torch.data.source import (ArraySource, ShardedSource, as_source,
                                      has_weights, shard_source, stream_device,
                                      weights_of)
@@ -688,6 +692,20 @@ class MeshExecutor(Executor):
     No step reads a value back to the host except EIM's pivot, once a
     filter round, as on ``HostStreamExecutor``. The executor runs where the
     mesh's device is; a mesh on ``"cuda"`` raises where there is none.
+
+    **Several processes** (``launch.cluster``, a mesh from
+    ``make_cluster_mesh``, each process's shards a ``ProcessShardedSource``):
+    the streamed path only. Each process streams and reduces its own shards
+    on its own device, every process runs the same steps (the counts of
+    every shard follow from the partition), and the processes exchange host
+    values: round 1's union once (O(k·S) rows), each radius's per-process
+    max, each filter round's top-``rank`` and its updated ``d_s`` slices
+    (an all-gather of n floats a round, as the JAX package replicates
+    ``d_s``; each process also stages its slices in an n-float pinned
+    buffer of which it writes only its own rows).
+    So the same calls give every process the bits of the one-process run
+    over the same shards and ``block_rows``, at one synchronising read an
+    exchange. The fused path and the weighted steps raise there.
     """
 
     def __init__(self, mesh, shard_axes: Sequence[str] = ("data",),
@@ -758,51 +776,82 @@ class MeshExecutor(Executor):
         return max(self.rows_for(source), 2 * k)
 
     def _local_ids(self, sh: ShardedSource):
-        """The shards this process feeds: all of them (``None``), as this
-        executor runs in one process. A source that holds data for fewer
-        shards than it has (shards of other processes) raises: no other
-        process exists to feed them."""
+        """The shards this process feeds: ``None`` (all of them) in one
+        process, where a source that holds data for fewer shards than it
+        has (shards of other processes) raises, as no other process exists
+        to feed them.
+
+        Under several processes (``compat.process_count() > 1``), the
+        shards of the mesh that this process owns
+        (``compat.local_shard_indices``). The mesh must span the run's
+        processes (``make_cluster_mesh``), and a source with
+        ``local_shard_ids`` (a ``ProcessShardedSource``) must hold data for
+        all of them: a data partition that disagrees with the mesh raises
+        here, not as a ``RemoteShard`` read deep in a fold."""
         src_local = getattr(sh, "local_shard_ids", None)
-        if src_local is not None and len(src_local) < sh.num_shards:
+        if compat.process_count() == 1:
+            if src_local is not None and len(src_local) < sh.num_shards:
+                raise ValueError(
+                    "source has remote shards but the runtime is "
+                    "single-process — no other process exists to feed them")
+            return None
+        if self.mesh.processes != compat.process_count():
             raise ValueError(
-                "source has remote shards but the runtime is "
-                "single-process — no other process exists to feed them")
-        return None
+                f"the mesh spans {self.mesh.processes} process(es) but the "
+                f"run has {compat.process_count()}; build it with "
+                "launch.mesh.make_cluster_mesh on every process")
+        lids = compat.local_shard_indices(self.mesh, sh.num_shards)
+        if src_local is not None:
+            missing = sorted(set(lids) - set(src_local))
+            if missing:
+                raise ValueError(
+                    f"process {compat.process_index()} owns mesh shards "
+                    f"{lids} but the source holds no data for shards "
+                    f"{missing} — align the data partition with the mesh "
+                    "(ProcessShardedSource.for_process with the launch "
+                    "process id)")
+        return lids
 
     # -- per-step sharded streaming -----------------------------------------
 
-    def _stream_steps(self, sh: ShardedSource, rows: int, *,
+    def _stream_steps(self, sh: ShardedSource, rows: int, local, *,
                       weighted: bool = False, masks: bool = True):
-        """Round 1's and the filter rounds' steps on the device: yields
-        ``(pts (S, rows, d), mask (S, rows) bool or None, counts (S,) np)``,
-        with ``weighted`` ``(pts, mask, w (S, rows), counts)``. A step is
-        one ``(S·rows, d)`` block through the sources' pinned ring (its
-        weights in the same slot), up to ``prefetch`` steps ahead. The mask
-        (rows below each shard's count; ``masks=False`` skips it) is made
-        on the device from the uploaded counts, and is ``None`` for a full
-        step, whose every row is valid."""
-        self._local_ids(sh)
+        """Round 1's and the filter rounds' steps on the device, over the
+        shards this process feeds (``local``, from ``_local_ids``; ``None``
+        is all S): yields ``(pts (S_l, rows, d), mask (S_l, rows) bool or
+        None, counts (S,) np)``, with ``weighted`` ``(pts, mask, w (S_l,
+        rows), counts)``. A step is one ``(S_l·rows, d)`` block of the fed
+        shards through the sources' pinned ring (its weights in the same
+        slot), up to ``prefetch`` steps ahead. ``counts`` covers every
+        shard, the other processes' too (from the partition, without a
+        read), so every process runs the same steps. The mask (rows below
+        each fed shard's count; ``masks=False`` skips it) is made on the
+        device from the uploaded counts, and is ``None`` for a full step,
+        whose every row is valid."""
         S, d, dev = sh.num_shards, sh.d, self.device
+        ids = np.arange(S) if local is None else np.unique(local)
         counts_q: deque = deque()
 
         def host():
             for step in engine.zip_shard_blocks(sh.shards, rows,
-                                                with_weights=weighted):
+                                                with_weights=weighted,
+                                                local_ids=local):
                 counts_q.append(step[-1])
-                pts = step[0].reshape(S * rows, d)
+                pts = step[0].reshape(ids.size * rows, d)
                 yield (pts, step[1].reshape(-1)) if weighted else pts
 
         lanes = torch.arange(rows, device=dev)
         for item in stream_device(host(), self.prefetch, dev,
                                   paired=weighted):
             counts = counts_q.popleft()
+            fed = counts[ids]
             blk = item[0] if weighted else item
-            pts = blk.view(S, rows, d)
+            pts = blk.view(ids.size, rows, d)
             mask = None
-            if masks and bool((counts < rows).any()):
-                mask = lanes[None, :] < upload(counts, dev)[:, None]
+            if masks and bool((fed < rows).any()):
+                mask = lanes[None, :] < upload(fed, dev)[:, None]
             if weighted:
-                yield pts, mask, item[1].view(S, rows), counts
+                yield pts, mask, item[1].view(ids.size, rows), counts
             else:
                 yield pts, mask, counts
 
@@ -814,12 +863,20 @@ class MeshExecutor(Executor):
         leading (one GON launch an iteration for all shards). The union is
         ordered shard-major (shard 0's blocks first): the global row order,
         ``HostStreamExecutor``'s union for the same blocking. A step where a
-        shard has run out gives that shard k invalid rows."""
+        shard has run out gives that shard k invalid rows.
+
+        Under several processes each runs ``fn`` on its own shards' blocks
+        (one launch an iteration for its S_l shards), and the local unions
+        are exchanged once, after the last step (``compat.fetch_global``,
+        one read of the local union: O(k·S) values), into the same
+        shard-major union on every process. Weighted steps raise there
+        (``zip_shard_blocks``)."""
         sh = self._sharded(source)
         rows = self.rows_for(sh)
+        local = self._local_ids(sh)
         weighted = not _is_plain(objective) and objective.weighted
         cs, ws, vs = [], [], []
-        for step in self._stream_steps(sh, rows, weighted=weighted):
+        for step in self._stream_steps(sh, rows, local, weighted=weighted):
             counts = step[-1]
             if weighted:
                 c, cw = fn(step[0], step[1], step[2])      # (S,k,d), (S,k)
@@ -832,6 +889,13 @@ class MeshExecutor(Executor):
             raise ValueError("cannot run round 1 over an empty source")
         k, d = cs[0].shape[1], cs[0].shape[2]
         centers = torch.stack(cs, dim=1).reshape(-1, d)    # (S·B·k, d)
+        if local is not None:
+            # this process's shards' unions, each (B·k, d), in shard order
+            mine = centers.cpu().numpy().reshape(len(local), -1, d)
+            pieces = [None] * sh.num_shards
+            for j, s in enumerate(local):
+                pieces[s] = mine[j]
+            centers = upload(compat.fetch_global(pieces), self.device)
         valid = upload(np.repeat(np.stack(vs, axis=1).reshape(-1), k),
                        self.device)
         if weighted:
@@ -845,7 +909,13 @@ class MeshExecutor(Executor):
         objective's top-(z+1)); over a sharded or host-backed source, the
         streamed fold over the ``ShardedSource``'s blocks, which never
         cross a shard boundary (#3; #6 when weighted), at the per-shard
-        ``rows``. Both give the bits of the other executors' radius."""
+        ``rows``. Both give the bits of the other executors' radius.
+
+        Under several processes (plain objective only; another raises, as
+        in the JAX package) each process folds its own shards' blocks, the
+        same blocks at the same ``rows``, reads its max (one read) and
+        exchanges it; the max of the maxima is the one fold's max, bitwise,
+        on every process."""
         src = as_source(source)
         if isinstance(src, ArraySource):
             return _resident_radius2(
@@ -854,8 +924,20 @@ class MeshExecutor(Executor):
                                    device=self.device),
                 impl=impl, chunk=chunk, objective=objective)
         sh = self._sharded(src)
-        self._local_ids(sh)
+        local = self._local_ids(sh)
         rows = self.rows_for(sh)
+        if local is not None:
+            if not _is_plain(objective):
+                raise NotImplementedError(
+                    "multi-process radius2 supports only the plain "
+                    "objective (a top-(z+1) cross-process merge is a "
+                    "value fold too, but no caller exists yet)")
+            mine = ShardedSource([sh.shards[s] for s in local])
+            part = engine.fold_min_d2(mine, centers, impl=impl, chunk=chunk,
+                                      block_rows=rows, prefetch=self.prefetch,
+                                      device=self.device)
+            parts = compat.exchange_host(part.cpu().numpy())
+            return upload(parts.max().reshape(1), self.device)[0]
         if not _is_plain(objective):
             top = engine.fold_top_k_min_d2(
                 sh, centers, objective.outliers + 1, impl=impl, chunk=chunk,
@@ -878,7 +960,16 @@ class MeshExecutor(Executor):
         cursors. Padded lanes carry ``d = 3.4e38`` and ``H = False``. The
         updated ``d_s`` comes back by non-blocking copies, which the pivot
         read (the round's one synchronising call) orders. ``weights``
-        raises, as in the JAX package: no weighted caller exists."""
+        raises, as in the JAX package: no weighted caller exists.
+
+        Under several processes each process streams its own shards (one
+        filter launch a step for its S_l blocks) and reads its top-``rank``
+        once, the round's one synchronising call; the processes exchange
+        their tops, and each merges them into the pivot (top-k values do
+        not depend on the blocking). They then exchange their shards'
+        updated ``d_s`` slices (``compat.fetch_global``), so every process
+        holds the same host ``d_s``: EIM's host state stays the same
+        everywhere, so every process makes the same calls."""
         if weights is not None:
             raise NotImplementedError(
                 "MeshExecutor.run_filter_round does not support weights "
@@ -886,35 +977,49 @@ class MeshExecutor(Executor):
                 "filter rounds")
         sh = self._sharded(source)
         rows = self.rows_for(sh)
+        local = self._local_ids(sh)
         S, d, dev = sh.num_shards, sh.d, self.device
+        ids = range(S) if local is None else local
         have_s = s_new is not None and len(s_new) > 0
         c = upload(np.asarray(s_new, np.float32), dev) if have_s else None
         back = _HostCopy(sh.n, dev) if have_s else None
         top = engine.top_k_init(rank, dev)
         pos = sh.offsets[:-1].astype(np.int64)       # per-shard view cursor
-        for pts, _, counts in self._stream_steps(sh, rows, masks=False):
-            d_np = np.full((S, rows), _BIG, np.float32)
-            h_np = np.zeros((S, rows), bool)
-            for s in range(S):
+        for pts, _, counts in self._stream_steps(sh, rows, local,
+                                                 masks=False):
+            d_np = np.full((len(ids), rows), _BIG, np.float32)
+            h_np = np.zeros((len(ids), rows), bool)
+            for j, s in enumerate(ids):
                 a, nb = int(pos[s]), int(counts[s])
-                d_np[s, :nb] = d_s[a:a + nb]
-                h_np[s, :nb] = h_mask[a:a + nb]
+                d_np[j, :nb] = d_s[a:a + nb]
+                h_np[j, :nb] = h_mask[a:a + nb]
             d_blk = upload(d_np.reshape(-1), dev)
             h_blk = upload(h_np.reshape(-1), dev)
             if have_s:
                 d_blk, top = engine.eim_filter_block(
-                    pts.view(S * rows, d), c, d_blk, h_blk, top, rank=rank,
-                    impl=impl, chunk=chunk)
-                for s in range(S):
+                    pts.view(len(ids) * rows, d), c, d_blk, h_blk, top,
+                    rank=rank, impl=impl, chunk=chunk)
+                for j, s in enumerate(ids):
                     if counts[s]:
                         back.put(int(pos[s]),
-                                 d_blk[s * rows:s * rows + int(counts[s])])
+                                 d_blk[j * rows:j * rows + int(counts[s])])
             else:
                 top = _eim_pivot_block(d_blk, h_blk, top, rank=rank)
             pos += counts
+        if local is not None:
+            # the read of the round (it orders the copies back), then the
+            # exchange of the tops and of the updated d_s slices
+            tops = compat.exchange_host(top.cpu().numpy())   # (P, rank)
+            top = engine.merge_top_k(engine.top_k_init(rank, "cpu"),
+                                     torch.from_numpy(tops), rank)
         pivot = _pivot_from_top(top, rank)
-        if have_s:
+        if have_s and local is None:
             back.into(d_s)
+        elif have_s:
+            buf, offs = back.buf.numpy(), sh.offsets
+            d_s[:] = compat.fetch_global(
+                [buf[offs[s]:offs[s + 1]] if s in local else None
+                 for s in range(S)])
         return d_s, pivot
 
     # -- MRG: the fused path, or the streamed sharded rounds ----------------
@@ -928,6 +1033,11 @@ class MeshExecutor(Executor):
         always take the streamed rounds, as in the JAX package."""
         src = as_source(source)
         if isinstance(src, ArraySource) and _is_plain(objective):
+            if compat.process_count() > 1:
+                raise NotImplementedError(
+                    "the fused in-memory mesh path runs in one process; "
+                    "under several processes pass each process's shards as "
+                    "a ProcessShardedSource (the streamed path)")
             if capacity is not None:
                 raise ValueError(
                     "MeshExecutor's machine capacity on the device path is "

@@ -5,8 +5,9 @@
                  draw bitwise the same inputs from a seed; the JAX package
                  reaches its copy through ``repro.data``, which imports jax)
   source.py    — out-of-core point sources, the sharded input of the mesh
-                 (``ShardedSource``, ``shard_source``) and the pinned
-                 upload ring
+                 (``ShardedSource``, ``shard_source``), the per-process
+                 input of a multi-process run (``ProcessShardedSource``,
+                 ``RemoteShard``) and the pinned upload ring
 """
 from .pointsets import GENERATORS, gau, kddlike, pokerlike, unb, unif  # noqa: F401
 from .source import (  # noqa: F401
@@ -15,6 +16,8 @@ from .source import (  # noqa: F401
     IndexedSource,
     MemmapSource,
     PointSource,
+    ProcessShardedSource,
+    RemoteShard,
     ShardedSource,
     SliceSource,
     SyntheticSource,

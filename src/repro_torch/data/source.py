@@ -44,8 +44,11 @@ indices: the compacted relation of the streamed EIM. ``SliceSource`` is a
 contiguous row range of a parent, and ``ShardedSource`` one source per
 machine shard, the paper's partitioned input (``shard_source`` splits one
 source into the paper's contiguous machine ranges); the mesh executor
-streams each shard's blocks in lockstep. The per-process sources
-(``RemoteShard``, ``ProcessShardedSource``) are not ported yet.
+streams each shard's blocks in lockstep. In a multi-process run
+(``repro_torch.launch.cluster``) each process holds a
+``ProcessShardedSource``: its own shards, and a ``RemoteShard`` (sizes
+only, any data access raises) for each shard of another process; its
+``take`` is a collective, the paper's O(k) candidate exchange.
 """
 from __future__ import annotations
 
@@ -56,6 +59,7 @@ from typing import Callable, Iterator, Protocol, Sequence, runtime_checkable
 import numpy as np
 import torch
 
+from repro_torch import compat
 from repro_torch.device import resolve_device, upload
 # the ring depth's one home is the engine's residency model
 from repro_torch.kernels.engine import DEFAULT_PREFETCH, host_blocks_of
@@ -863,6 +867,172 @@ class ShardedSource:
         return torch.cat([torch.from_numpy(np.array(b, np.float32))
                           for b in self.host_blocks(1 << 20)]).to(
                               resolve_device(device))
+
+
+class RemoteShard:
+    """The stand-in for a shard whose rows live in another process.
+
+    In a multi-process run no process can read another machine's shard,
+    but every process must know the global partition (shard sizes give the
+    global row ids, the masks' shapes and the lockstep step count).
+    ``RemoteShard`` carries ``n`` and ``d`` and raises on any data access,
+    so that no code path can pull a remote row onto this host.
+
+    >>> RemoteShard(5, 2, process=1).take([0])
+    Traceback (most recent call last):
+    ...
+    RuntimeError: shard data lives on process 1; take() cannot run here — multi-process folds read only local shards, and rows move between processes only through the O(k) candidate exchange (ProcessShardedSource.take)
+    """
+
+    is_remote = True
+
+    def __init__(self, n: int, d: int, *, process: int = 0):
+        if n < 0:
+            raise ValueError(f"n must be >= 0, got {n}")
+        if d < 1:
+            raise ValueError(f"d must be >= 1, got {d}")
+        self._n = int(n)
+        self._d = int(d)
+        self._process = int(process)
+
+    @property
+    def n(self) -> int:
+        return self._n
+
+    @property
+    def d(self) -> int:
+        return self._d
+
+    @property
+    def process(self) -> int:
+        """The process that owns (and feeds) this shard."""
+        return self._process
+
+    def _no_data(self, op: str):
+        raise RuntimeError(
+            f"shard data lives on process {self._process}; {op} cannot run "
+            "here — multi-process folds read only local shards, and rows "
+            "move between processes only through the O(k) candidate "
+            "exchange (ProcessShardedSource.take)")
+
+    def blocks(self, block_rows: int, **kwargs):
+        self._no_data("blocks()")
+
+    def host_blocks(self, block_rows: int):
+        self._no_data("host_blocks()")
+
+    def row(self, idx: int):
+        self._no_data("row()")
+
+    def take(self, indices):
+        self._no_data("take()")
+
+    def materialize(self, device=None):
+        self._no_data("materialize()")
+
+
+class ProcessShardedSource(ShardedSource):
+    """A ``ShardedSource`` whose remote shards are ``RemoteShard`` stand-ins:
+    the input of a multi-process run.
+
+    Every process builds the same global partition (the same shard sizes in
+    the same order, so global row ids agree everywhere) but holds data only
+    for its own shards. The mesh executor streams the local shards and
+    skips the stand-ins. Random access (``take``, ``row``) is the paper's
+    O(k) candidate exchange: each process gathers its own rows into a
+    zero-filled buffer, the buffers are all-gathered
+    (``compat.exchange_host``), and each row is taken from its owner's
+    buffer: data movement only, bitwise exact, O(|indices|·d) bytes a
+    process and never a shard.
+
+    ``take`` is a collective: every process calls it with the same indices
+    (the drivers do: their host state is the same on every process), and a
+    call whose indices differ between processes raises on all of them.
+    ``materialize`` raises.
+    """
+
+    def __init__(self, shards: Sequence):
+        super().__init__(shards)
+        self._local_ids = tuple(
+            i for i, s in enumerate(self.shards)
+            if not getattr(s, "is_remote", False))
+        if not self._local_ids:
+            raise ValueError(
+                "ProcessShardedSource needs at least one local shard on "
+                "this process")
+
+    @classmethod
+    def for_process(cls, local, sizes: Sequence[int],
+                    process_id: int) -> "ProcessShardedSource":
+        """The layout of ``make_cluster_mesh``: ``sizes`` are the global
+        per-shard row counts (one list on every process), and ``local`` is
+        this process's source, or a sequence of its sources for
+        ``len(local)`` shards a process (process p owns shards
+        ``[p·len(local), (p+1)·len(local))``). Every other shard becomes a
+        ``RemoteShard`` of its owner."""
+        many = isinstance(local, (list, tuple))
+        local = [as_source(s) for s in (local if many else [local])]
+        sizes = [int(s) for s in sizes]
+        per = len(local)
+        if per == 0 or len(sizes) % per:
+            raise ValueError(
+                f"{len(sizes)} shards do not split into {per} shards a "
+                "process")
+        first = process_id * per
+        if not 0 <= first < len(sizes):
+            raise ValueError(
+                f"process_id {process_id} out of range for "
+                f"{len(sizes)} shards")
+        for j, s in enumerate(local):
+            if s.n != sizes[first + j]:
+                raise ValueError(
+                    f"local shard has {s.n} rows but sizes[{first + j}] "
+                    f"says {sizes[first + j]} — the global partition must "
+                    "agree across processes")
+        d = local[0].d
+        shards = [local[i - first] if first <= i < first + per
+                  else RemoteShard(sizes[i], d, process=i // per)
+                  for i in range(len(sizes))]
+        return cls(shards)
+
+    @property
+    def local_shard_ids(self) -> tuple:
+        """Indices of the shards whose data lives on this process."""
+        return self._local_ids
+
+    def _owner_process(self, shard: np.ndarray) -> np.ndarray:
+        me = compat.process_index()
+        owners = np.asarray(
+            [getattr(s, "process", me) if getattr(s, "is_remote", False)
+             else me for s in self.shards], np.int64)
+        return owners[shard]
+
+    def take(self, indices) -> np.ndarray:
+        idx = _check_take_indices(indices, self.n)
+        shard = self._locate(idx)
+        vals = np.zeros((idx.size, self.d), np.float32)
+        for s in self._local_ids:
+            sel = shard == s
+            if sel.any():
+                vals[sel] = np.asarray(
+                    self.shards[s].take(idx[sel] - self._offsets[s]),
+                    np.float32)
+        if compat.process_count() == 1:
+            remote = ~np.isin(shard, np.asarray(self._local_ids))
+            if remote.any():
+                raise RuntimeError(
+                    "take() hit a remote shard but the runtime is "
+                    "single-process — nobody can contribute those rows")
+            return vals
+        compat.same_on_every_process("ProcessShardedSource.take", idx)
+        gathered = compat.exchange_host(vals)        # (P, |idx|, d)
+        owner = self._owner_process(shard)
+        return gathered[owner, np.arange(idx.size)]
+
+    def row(self, idx: int) -> np.ndarray:
+        if not 0 <= idx < self.n:
+            raise IndexError(f"row {idx} out of range for n={self.n}")
+        return self.take(np.asarray([idx]))[0]
 
 
 class WeightedSource:

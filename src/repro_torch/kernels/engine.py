@@ -462,9 +462,10 @@ def zip_shard_blocks(shards, rows: int, *, with_weights: bool = False,
     none) at a per-shard row cursor.
 
     ``local_ids`` (shard indices, or ``None`` for all) is the multi-process
-    form: a shard not in it is never read, its slot in ``pts`` (then a list
-    of ``(rows, d)`` arrays) is ``None``, and its ``counts`` still follow
-    from its size and a cursor, so every process sees the same steps.
+    form: ``pts`` holds only those shards, ``(S_l, rows, d)`` in ascending
+    shard order, a shard not in it is never read, and its ``counts`` still
+    follow from its size and a cursor, so every process sees the same
+    steps.
 
     >>> import numpy as np
     >>> from repro_torch.data.source import HostSource
@@ -478,22 +479,19 @@ def zip_shard_blocks(shards, rows: int, *, with_weights: bool = False,
     shards = list(shards)
     if not shards:
         raise ValueError("zip_shard_blocks needs at least one shard")
-    local = (set(range(len(shards))) if local_ids is None
-             else {int(i) for i in local_ids})
-    sparse = local_ids is not None
-    if sparse and with_weights:
+    local = (list(range(len(shards))) if local_ids is None
+             else sorted({int(i) for i in local_ids}))
+    slot = {s: j for j, s in enumerate(local)}
+    if local_ids is not None and with_weights:
         raise NotImplementedError(
             "weighted lockstep steps are not supported with non-local "
             "shards (no weighted multi-process caller exists)")
     d = shards[0].d
-    its = [host_blocks_of(s, rows) if i in local else None
+    its = [host_blocks_of(s, rows) if i in slot else None
            for i, s in enumerate(shards)]
     pos = [0] * len(shards)
     while True:
-        if sparse:
-            pts = [None] * len(shards)
-        else:
-            pts = np.zeros((len(shards), rows, d), np.float32)
+        pts = np.zeros((len(local), rows, d), np.float32)
         w = np.zeros((len(shards), rows), np.float32) if with_weights else None
         counts = np.zeros((len(shards),), np.int64)
         any_rows = False
@@ -515,12 +513,7 @@ def zip_shard_blocks(shards, rows: int, *, with_weights: bool = False,
                 raise ValueError(
                     f"shard {s} yielded a {nb}-row block for "
                     f"block_rows={rows}")
-            if sparse:
-                piece = np.zeros((rows, d), np.float32)
-                piece[:nb] = blk
-                pts[s] = piece
-            else:
-                pts[s, :nb] = blk
+            pts[slot[s], :nb] = blk
             if with_weights:
                 w[s, :nb] = _source_weights(shards[s], pos[s], nb)
             pos[s] += nb

@@ -1,7 +1,27 @@
 """Launch helpers (port of ``repro.launch``).
 
-  mesh.py — ``Mesh`` and ``make_mesh``: the paper's machines as the
-            positions of a named mesh, in one process; the two collectives
-            the mesh executor uses (``all_gather``, ``all_max``)
+  mesh.py    — ``Mesh``, ``make_mesh`` and ``make_cluster_mesh``: the
+               paper's machines as the positions of a named mesh, in one
+               process or over the processes of a run; the two collectives
+               the mesh executor uses in one process (``all_gather``,
+               ``all_max``)
+  cluster.py — the multi-process launcher: ``launch_cluster`` and
+               ``run_scenario`` start local worker processes over one
+               ``torch.distributed`` group and collect their verdicts
+               (``python -m repro_torch.launch.cluster --demo -n 2``)
 """
-from .mesh import Mesh, all_gather, all_max, make_mesh  # noqa: F401
+from .mesh import (Mesh, all_gather, all_max, make_cluster_mesh,  # noqa: F401
+                   make_mesh)
+
+# The launcher's names load on first use: ``python -m
+# repro_torch.launch.cluster`` imports this package first, and an eager
+# import of the module it is about to run would make runpy warn.
+_CLUSTER = ("ClusterError", "WorkerContext", "WorkerResult", "free_port",
+            "launch_cluster", "load_target", "run_scenario", "worker_env")
+
+
+def __getattr__(name):
+    if name in _CLUSTER:
+        from . import cluster
+        return getattr(cluster, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

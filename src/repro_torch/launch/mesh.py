@@ -1,16 +1,23 @@
-"""The machine mesh (port of ``repro.launch.mesh.make_mesh`` and the mesh
-half of ``repro.compat``).
+"""The machine mesh (port of ``repro.launch.mesh`` and the mesh half of
+``repro.compat``).
 
 A ``Mesh`` names the paper's machines: an ordered mapping of axis names to
-sizes, and the device of every position. In one process every position is
-the same ``torch.device`` — the card by default, or ``"cpu"`` when asked —
-so 50 machines on one H100 are 50 shards on ``cuda:0``, as the JAX package's
-CPU tests put 8 shards on 8 forced host devices. Several GPUs are one
-process each (PyTorch's idiom), which this module does not cover yet.
+sizes, the process that owns each position (``owners``) and this process's
+device. ``make_mesh`` builds a mesh of one process: every position is the
+same ``torch.device`` — the card by default, or ``"cpu"`` when asked — so
+50 machines on one H100 are 50 shards on ``cuda:0``, as the JAX package's
+CPU tests put 8 shards on 8 forced host devices.
 
-The executors exchange values between positions through two collectives,
-kept here as small functions so that a multi-process mesh can replace them
-with ``all_gather_into_tensor`` and ``all_reduce(MAX)``:
+``make_cluster_mesh`` builds the mesh of a multi-process run
+(``repro_torch.launch.cluster``, ``repro_torch.compat``): one shard axis
+over every process's positions, process-major, so shard ``s`` belongs to
+process ``s // shards_per_process``. Each process keeps its own positions
+on its own device (``cuda:{rank % device_count}``; processes may share one
+card) and reads only its own shards; the mesh executor exchanges host
+values between the processes.
+
+In one process the executors exchange values between positions through two
+collectives, kept here as small functions:
 
   * ``all_gather(parts, axis)`` — the tiled all-gather along one mesh axis;
   * ``all_max(parts)`` — the max over every position.
@@ -27,22 +34,25 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch import compat
 from repro_torch.device import resolve_device
 
 
 class Mesh:
-    """``shape`` (axis → size, in ``axis_names`` order), ``axis_names`` and
-    ``device``, every position's device (``devices``, an object array of the
-    mesh's shape). ``device=None`` means ``"cuda"`` and raises where there
-    is none.
+    """``shape`` (axis → size, in ``axis_names`` order), ``axis_names``,
+    ``device`` (this process's), ``owners`` (the process of every position,
+    an int array of the mesh's shape; all 0 by default, a mesh of one
+    process) and ``devices`` (every position's device, ``None`` at the
+    positions of other processes). ``device=None`` means ``"cuda"`` and
+    raises where there is none.
 
     >>> m = Mesh((2, 3), ("pod", "data"), device="cpu")
-    >>> dict(m.shape), m.devices.shape
-    ({'pod': 2, 'data': 3}, (2, 3))
+    >>> dict(m.shape), m.devices.shape, m.processes
+    ({'pod': 2, 'data': 3}, (2, 3), 1)
     """
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str], *,
-                 device=None):
+                 device=None, owners=None):
         sizes = tuple(int(s) for s in shape)
         axes = tuple(str(a) for a in axis_names)
         if len(sizes) != len(axes):
@@ -52,27 +62,92 @@ class Mesh:
             raise ValueError(f"mesh axis names repeat: {axes}")
         if any(s < 1 for s in sizes):
             raise ValueError(f"mesh axis sizes must be >= 1, got {sizes}")
+        if owners is None:
+            owners = np.zeros(sizes, np.int64)
+        owners = np.asarray(owners, np.int64)
+        if owners.shape != sizes or owners.min() < 0:
+            raise ValueError(f"owners must be process ids of the mesh's shape "
+                             f"{sizes}, got shape {owners.shape}")
         self.axis_names = axes
         self.shape = OrderedDict(zip(axes, sizes))
+        self.owners = owners
         self.device = resolve_device(device)
 
     @property
+    def processes(self) -> int:
+        """Processes the mesh spans."""
+        return int(self.owners.max()) + 1
+
+    @property
     def devices(self) -> np.ndarray:
-        """The device of each position, shaped like the mesh."""
+        """The device of each position, shaped like the mesh: this
+        process's device at its own positions, ``None`` at other
+        processes'."""
         out = np.empty(tuple(self.shape.values()), dtype=object)
-        out.fill(self.device)
+        out[self.owners == compat.process_index()] = self.device
         return out
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
               device=None) -> Mesh:
-    """A mesh of ``shape`` over the named ``axes``, every position on
-    ``device`` (``None`` means ``"cuda"``; raises where there is none).
+    """A mesh of one process, ``shape`` over the named ``axes``, every
+    position on ``device`` (``None`` means ``"cuda"``; raises where there is
+    none).
 
     >>> make_mesh((4, 2), ("data", "model"), device="cpu").shape["data"]
     4
     """
     return Mesh(shape, axes, device=device)
+
+
+def _cluster_device(device=None) -> torch.device:
+    """This process's device in a multi-process run: ``None`` means its
+    card, ``cuda:{rank % device_count}`` (raises where there is none), made
+    the current CUDA device; anything else as ``resolve_device`` takes it."""
+    if device is None and torch.cuda.is_available():
+        device = f"cuda:{compat.process_index() % torch.cuda.device_count()}"
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is not None:
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def make_cluster_mesh(axes: Sequence[str] = ("data",), *,
+                      shards_per_process: int = 1, device=None) -> Mesh:
+    """The mesh of a multi-process run: one shard axis over
+    ``process_count() × shards_per_process`` positions, process-major, so
+    process p owns shards ``[p·spp, (p+1)·spp)`` (the layout
+    ``ProcessShardedSource.for_process`` builds). ``device`` is this
+    process's: ``None`` is its card, ``cuda:{rank % device_count}``, made
+    the current CUDA device.
+
+    Every process must call it, with the same ``shards_per_process``: the
+    processes check that they build one mesh (a collective), so a partition
+    fault fails here and not as processes that diverge later. One axis
+    only. In one process it is a mesh of ``shards_per_process`` positions,
+    as ``make_mesh`` builds it.
+
+    >>> m = make_cluster_mesh(shards_per_process=2, device="cpu")
+    >>> m.shape["data"], m.owners.tolist()
+    (2, [0, 0])
+    """
+    axes = tuple(axes)
+    if len(axes) != 1:
+        raise ValueError(
+            f"make_cluster_mesh builds a single sharding axis, got {axes}")
+    spp = int(shards_per_process)
+    if spp < 1:
+        raise ValueError(f"shards_per_process must be >= 1, got {spp}")
+    every = compat.exchange_host(np.asarray([spp], np.int64))[:, 0]
+    if (every != spp).any():
+        raise ValueError(
+            f"the processes ask for different meshes: shards_per_process "
+            f"{every.tolist()} by process; the mesh must cover every process "
+            "with one layout")
+    count = compat.process_count()
+    owners = np.repeat(np.arange(count, dtype=np.int64), spp)
+    return Mesh((count * spp,), axes, device=_cluster_device(device),
+                owners=owners)
 
 
 def all_gather(parts: torch.Tensor, axis: int) -> torch.Tensor:

@@ -502,13 +502,94 @@ def test_zip_shard_blocks_matches_jax(weights, local):
     for g, r in zip(got, want):
         assert len(g) == len(r)
         for a, b in zip(g, r):
-            if isinstance(a, list):
-                assert [p is None for p in a] == [p is None for p in b]
-                for p, q in zip(a, b):
-                    if p is not None:
-                        np.testing.assert_array_equal(p, q)
-            else:
-                np.testing.assert_array_equal(a, b)
+            if isinstance(b, list):
+                # the port stacks the fed shards, (S_l, rows, d), where the
+                # JAX package leaves the other processes' slots None
+                assert [p is None for p in b] == [i not in local
+                                                  for i in range(len(b))]
+                b = np.stack([q for q in b if q is not None])
+            np.testing.assert_array_equal(a, b)
     with pytest.raises(NotImplementedError):
         next(engine.zip_shard_blocks(port, 4, with_weights=True,
                                      local_ids=(0,)))
+
+
+# -- one process: the multi-process branches stay out of the way ---------------
+
+def test_process_sharded_source_in_one_process_raises():
+    """A ``ProcessShardedSource`` with another process's shard cannot run in
+    one process: ``mrg`` and ``eim`` raise as the JAX package's do."""
+    from repro_torch.data import ProcessShardedSource
+    x = _X[:64]
+    src = ProcessShardedSource.for_process(HostSource(x[:32]), [32, 32], 0)
+    jsrc = jsource.ProcessShardedSource.for_process(JHostSource(x[:32]),
+                                                    [32, 32], 0)
+    with pytest.raises(ValueError) as want:
+        jmrg(jsrc, 3, impl="ref",
+             executor=JMeshExecutor(jcompat.make_mesh(
+                 np.array(jax.devices()[:1] * 2), ("data",))))
+    ex = MeshExecutor(_mesh((2,)), block_rows=16)
+    with pytest.raises(ValueError) as got:
+        mrg(src, 3, executor=ex)
+    assert str(got.value) in str(want.value)
+    # EIM's loop gathers its first samples, some of them remote, and raises
+    half = N // 2
+    src = ProcessShardedSource.for_process(HostSource(_X[:half]),
+                                           [half, half], 0)
+    jsrc = jsource.ProcessShardedSource.for_process(JHostSource(_X[:half]),
+                                                    [half, half], 0)
+    _raises_like_jax(
+        lambda: eim(src, 3, 1, executor=MeshExecutor(_mesh((2,)),
+                                                     block_rows=512)),
+        lambda: jeim(jsrc, 3, jax.random.PRNGKey(1), impl="ref",
+                     executor=JMeshExecutor(jcompat.make_mesh(
+                         np.array(jax.devices()[:1] * 2), ("data",)),
+                         block_rows=512)))
+
+
+def test_one_process_mesh_makes_no_exchange(monkeypatch):
+    """In one process the mesh executor never calls the exchanges of a
+    multi-process run (so it adds no read: the card's phase 12 counts the
+    synchronising calls), and its results stay bitwise
+    ``HostStreamExecutor``'s over the same shards."""
+    from repro_torch import compat
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("an exchange in a one-process run")
+
+    for name in ("exchange_host", "fetch_global", "same_on_every_process",
+                 "local_shard_indices"):
+        monkeypatch.setattr(compat, name, forbidden)
+    sh = shard_source(HostSource(_X), 4)
+    ex = MeshExecutor(_mesh((4,)), block_rows=512)
+    host = HostStreamExecutor(block_rows=512, device="cpu")
+    _same_mrg(mrg(sh, K, executor=ex), mrg(sh, K, executor=host))
+    got, want = eim(sh, 2, 5, executor=ex), eim(sh, 2, 5, executor=host)
+    np.testing.assert_array_equal(got.centers, want.centers)
+    assert float(got.radius2) == float(want.radius2)
+    np.testing.assert_array_equal(got.sample.sample_mask,
+                                  want.sample.sample_mask)
+
+
+def test_fused_path_and_weighted_steps_raise_under_several_processes(
+        monkeypatch):
+    """Under several processes the fused in-memory path raises (naming the
+    source to pass instead), as do the weighted steps and a non-plain
+    radius; a one-process mesh there raises too."""
+    from repro_torch import compat
+    from repro_torch.launch import Mesh
+    monkeypatch.setattr(compat, "process_count", lambda: 2)
+    monkeypatch.setattr(compat, "process_index", lambda: 0)
+    cluster = Mesh((2,), ("data",), device="cpu", owners=[0, 1])
+    with pytest.raises(NotImplementedError, match="ProcessShardedSource"):
+        mrg(torch.from_numpy(_X[:64]), 3, executor=MeshExecutor(cluster))
+    sh = shard_source(HostSource(_X[:64]), 2)
+    w = WeightedSource(HostSource(_X[:64]), np.ones(64, np.float32))
+    ex = MeshExecutor(cluster, block_rows=16)
+    with pytest.raises(NotImplementedError, match="weighted"):
+        mrg(shard_source(w, 2), 3, executor=ex,
+            objective=Objective(weighted=True))
+    with pytest.raises(NotImplementedError, match="plain objective"):
+        ex.radius2(sh, torch.zeros((3, D)), objective=Objective(outliers=2))
+    with pytest.raises(ValueError, match="make_cluster_mesh"):
+        mrg(sh, 3, executor=MeshExecutor(_mesh((2,)), block_rows=16))

@@ -149,3 +149,76 @@ def test_blocks_default_to_cuda_and_raise_without_it(monkeypatch):
         ArraySource(_x())
     # a tensor that is already placed keeps its device
     assert ArraySource(torch.from_numpy(_x())).device.type == "cpu"
+
+
+# -- the per-process sources of a multi-process run ---------------------------
+
+def _raises_alike(port_call, jax_call):
+    """Both calls raise one exception type with one message."""
+    with pytest.raises(Exception) as want:
+        jax_call()
+    with pytest.raises(type(want.value)) as got:
+        port_call()
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("op", ["blocks", "host_blocks", "row", "take",
+                                "materialize"])
+def test_remote_shard_raises_on_every_data_access(op):
+    from repro_torch.data import RemoteShard
+    port, jax_ = RemoteShard(7, 3, process=2), jsource.RemoteShard(7, 3,
+                                                                   process=2)
+    assert (port.n, port.d, port.process, port.is_remote) == (7, 3, 2, True)
+    arg = {"blocks": (4,), "host_blocks": (4,), "row": (0,), "take": ([0],),
+           "materialize": ()}[op]
+    _raises_alike(lambda: getattr(port, op)(*arg),
+                  lambda: getattr(jax_, op)(*arg))
+    _raises_alike(lambda: RemoteShard(-1, 3), lambda: jsource.RemoteShard(-1, 3))
+    _raises_alike(lambda: RemoteShard(4, 0), lambda: jsource.RemoteShard(4, 0))
+
+
+def test_for_process_validates_sizes_and_ids():
+    from repro_torch.data import ProcessShardedSource, RemoteShard
+    x = _x(n=30)
+    for sizes, pid in (([31, 30], 0), ([10, 30], 0), ([30], 1), ([30], -1)):
+        _raises_alike(
+            lambda: ProcessShardedSource.for_process(HostSource(x), sizes, pid),
+            lambda: jsource.ProcessShardedSource.for_process(
+                jsource.HostSource(x), sizes, pid))
+    src = ProcessShardedSource.for_process(HostSource(x), [5, 30, 7], 1)
+    want = jsource.ProcessShardedSource.for_process(jsource.HostSource(x),
+                                                    [5, 30, 7], 1)
+    assert src.local_shard_ids == want.local_shard_ids == (1,)
+    assert src.offsets.tolist() == want.offsets.tolist() == [0, 5, 35, 42]
+    assert [getattr(s, "process", None) for s in src.shards] == [0, None, 2]
+    # several shards a process: process 1 of 2 owns shards 2 and 3
+    two = ProcessShardedSource.for_process(
+        [HostSource(x[:20]), HostSource(x[20:])], [4, 4, 20, 10], 1)
+    assert two.local_shard_ids == (2, 3)
+    assert [getattr(s, "process", None) for s in two.shards] == [0, 0, None,
+                                                                 None]
+    with pytest.raises(ValueError, match="shards a process"):
+        ProcessShardedSource.for_process([HostSource(x)] * 2, [30] * 3, 0)
+    _raises_alike(
+        lambda: ProcessShardedSource([RemoteShard(3, 3, process=1)]),
+        lambda: jsource.ProcessShardedSource([jsource.RemoteShard(3, 3,
+                                                                  process=1)]))
+
+
+def test_one_process_take_reads_local_rows_and_raises_on_remote():
+    from repro_torch.data import ProcessShardedSource
+    x = _x(n=40)
+    src = ProcessShardedSource.for_process(HostSource(x[:25]), [25, 15], 0)
+    want = jsource.ProcessShardedSource.for_process(jsource.HostSource(x[:25]),
+                                                    [25, 15], 0)
+    idx = [24, 0, 7, 7]
+    np.testing.assert_array_equal(src.take(idx), want.take(idx))
+    np.testing.assert_array_equal(src.take(idx), x[idx])
+    np.testing.assert_array_equal(src.row(3), x[3])
+    _raises_alike(lambda: src.take([3, 30]), lambda: want.take([3, 30]))
+    _raises_alike(lambda: src.row(40), lambda: want.row(40))
+    # streaming and materializing reach the remote shard and raise
+    _raises_alike(lambda: list(src.host_blocks(8)),
+                  lambda: list(want.host_blocks(8)))
+    with pytest.raises(RuntimeError, match="lives on process 1"):
+        src.materialize("cpu")
