@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of MRG (paper Algorithm 1), coreset
 selection, the weighted and outlier objectives, the streaming sketch, EIM
-(paper §4), the online k-center service and the paper's machines as mesh
-shards and as separate processes on one GPU, in memory and out of core.
+(paper §4), the online k-center service, the paper's machines as mesh
+shards and as separate processes, and the dense LM (serving, and curating
+its embeddings by k-center) on one GPU, in memory and out of core.
 
     python3 chip_smoke.py        # from the root of a checkout, one Hopper card
 
@@ -171,6 +172,30 @@ Phases, each of which raises on failure (nothing is caught):
               rounds and EIM sample bitwise against the one-process
               MeshExecutor over the same shards (12c's run for 13a's mrg).
               A failed worker fails the phase.
+  14. the dense LM at qwen2-0.5b's full width (``repro_torch.models``,
+              ``serve.Engine``; random weights from a seed): 14a the bf16
+              model built on the card (494,032,768 parameters: param_counts
+              and the norm scales), its bytes and peak memory; 14b the same
+              architecture in f32 (TF32 off): forward on the card against
+              forward on the CPU (B = 2, S = 16), and prefill over 600
+              tokens (the chunked attend, queries padded) then 8 decode
+              steps against forward over the 608 (logits within 1e-3 of the
+              largest |logit|, greedy tokens equal wherever the top-2 margin
+              exceeds twice that); 14c examples/serve_lm.py's loop (B = 4,
+              16-token prompts, 32 greedy decode steps: tokens/s, ms a step,
+              a profile of 8 steps) and Engine(slots=8, s_max=512) over 16
+              requests of 4-200 prompt tokens (buckets 8-256), 32 tokens
+              each, half greedy, half at temperature 0.7 with top-k 40 (one
+              with top-p 0.9), run twice from the seed: every request its 32
+              tokens in the vocabulary, the same tokens both runs,
+              synchronising calls exactly one a step and one an admission;
+              tokens/s, TTFT mean and p99, steps, peak memory; 14d
+              curation: 4,096 sequences x 128 tokens embedded by bf16
+              forward(return_hidden=True) through embed_batches (mean
+              pooled in f32), select_coreset(emb, 64) against impl="ref"
+              (check_coreset), and kernels #1, #2s and #5 alone at (1 x
+              4,096 x 896, k = 64) against their plain versions, with
+              times, bounds and the library's time.
 
 Prints the card's name and power limit, one JSON line describing every
 kernel, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -3574,6 +3599,361 @@ def phase_cluster(torch, P, counters, backend="gloo"):
     return totals
 
 
+# Phase 14: the dense LM at qwen2-0.5b's full width (configs/qwen2_0_5b.py
+# full(), bf16; random weights from a seed: no checkpoint exists) — served by
+# the continuous-batching Engine, and embedding a token corpus that
+# select_coreset curates on kernels #1, #2s and #5 at d = 896.
+LM_ARCH = "qwen2_0_5b"
+LM_PARAMS = 494_032_768      # param_counts()["total"] + 2·24·896 + 896 norm scales
+LM_F32_RTOL = 1e-3           # 14b: max |Δ logit| within 1e-3 of the largest |logit|
+LM_PARITY = (2, 16)          # 14b: the card's forward against the CPU's, B x S
+LM_PREFILL, LM_DECODE = 600, 8   # 14b: a prompt past the 512-query chunk, steps
+LM_LOOP = (4, 16, 32)        # 14c: examples/serve_lm.py's B, prompt length, steps
+LM_ENGINE = (8, 512, 32)     # 14c: slots, s_max, max_new
+# 16 prompt lengths: every bucket from 8 to 256 occurs
+LM_PROMPTS = (4, 7, 8, 9, 13, 16, 17, 30, 33, 60, 64, 65, 100, 128, 129, 200)
+LM_CORPUS = (64, 64, 128)    # 14d: batches x sequences x tokens: 4,096 examples
+LM_K = 64
+
+
+def greedy_agree(torch, got, want, tol):
+    """Whether the greedy tokens agree wherever ``want``'s top-2 margin
+    exceeds twice ``tol``; with the count of such positions."""
+    top = torch.topk(want, 2, dim=-1).values
+    sure = (top[..., 0] - top[..., 1]) > 2 * tol
+    same = got.argmax(-1) == want.argmax(-1)
+    return bool(same[sure].all()), int(sure.sum()), int(same.numel())
+
+
+def phase_lm(torch, engine, counters, results):
+    print("== phase 14: the dense LM at qwen2-0.5b's full width: 14a build, "
+          "14b f32 parity (card against CPU, prefill + decode against "
+          "forward), 14c serving (the example's loop, the Engine), 14d "
+          "curation (embed_batches, select_coreset on kernels #1, #2s, #5)",
+          flush=True)
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    # bf16 products into bf16 keep f32 sums in cuBLAS's split-K too
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = get_config(LM_ARCH)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = models.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    norms = (2 * cfg.num_layers + 1) * cfg.d_model
+    check(n == LM_PARAMS == cfg.param_counts()["total"] + norms,
+          f"14a: {n} parameters, expected {LM_PARAMS}")
+    print(f"14a {cfg.name} full() {cfg.param_dtype}: params={n} "
+          f"(param_counts total {cfg.param_counts()['total']} + norm scales "
+          f"{norms}) bytes={nbytes} build_seconds={build_s:.3f} "
+          f"peak_bytes={torch.cuda.max_memory_allocated() - base}", flush=True)
+    lm_parity(torch, cfg)
+    lm_serve(torch, cfg, model)
+    return lm_curation(torch, engine, cfg, model, counters, results)
+
+
+def lm_parity(torch, cfg):
+    """14b: f32 weights (the same architecture), TF32 off: the card's
+    forward against the CPU's on the same weights; prefill past the chunk
+    then decode steps against forward over the whole sequence."""
+    from repro_torch import models
+    from repro_torch.data import token_batch
+    from repro_torch.models.lm import LM
+    f32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    model = models.init_params(f32, seed=1)
+    cpu = LM(f32, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    B, S = LM_PARITY
+    toks = token_batch(f32.vocab_size, B, S, seed=1)["tokens"]
+    t0 = time.perf_counter()
+    want = models.forward(cpu, {"tokens": toks}, f32)[0]
+    cpu_s = time.perf_counter() - t0
+    got = models.forward(model, {"tokens": toks}, f32)[0].cpu()
+    del cpu
+    tol = LM_F32_RTOL * want.abs().max().item()
+    err = (got - want).abs().max().item()
+    agree, sure, total = greedy_agree(torch, got, want, tol)
+    check(err <= tol, f"14b: the card's f32 forward is {err} from the CPU's "
+          f"(tolerance {tol})")
+    check(agree, "14b: greedy tokens differ from the CPU's beyond the margin")
+    print(f"14b forward f32 B={B} S={S} card against CPU: ok max_abs_err={err:.3g} "
+          f"tolerance={tol:.3g} (1e-3 of max|logit| {want.abs().max().item():.4g}) "
+          f"greedy_equal_where_margin={sure}/{total} cpu_seconds={cpu_s:.2f}",
+          flush=True)
+    n = LM_PREFILL + LM_DECODE
+    toks = token_batch(f32.vocab_size, 1, n, seed=2)["tokens"]
+    full = models.forward(model, {"tokens": toks}, f32)[0][0, LM_PREFILL - 1:]
+    last, cache = models.prefill(model, {"tokens": toks[:, :LM_PREFILL]}, f32, n)
+    steps = [last[0, 0]]
+    for i in range(LM_DECODE):
+        logits, cache = models.decode_step(
+            model, cache, toks[:, LM_PREFILL + i:LM_PREFILL + i + 1], f32)
+        steps.append(logits[0, 0])
+    steps = torch.stack(steps)
+    tol = LM_F32_RTOL * full.abs().max().item()
+    errs = (steps - full).abs().amax(-1).tolist()
+    agree, sure, total = greedy_agree(torch, steps, full, tol)
+    check(max(errs) <= tol, f"14b: decode logits {max(errs)} from forward's "
+          f"(tolerance {tol})")
+    check(agree, "14b: greedy tokens of decode differ from forward's beyond "
+          "the margin")
+    check(int(cache["pos"][0]) == n, "14b: the cache's position")
+    print(f"14b prefill {LM_PREFILL} tokens (chunked attend, queries padded "
+          f"to 1024) + {LM_DECODE} decode steps f32 against forward over {n}: "
+          f"ok max_abs_err_by_position={[float(f'{e:.3g}') for e in errs]} "
+          f"tolerance={tol:.3g} greedy_equal_where_margin={sure}/{total}",
+          flush=True)
+    del model, cache
+    torch.cuda.empty_cache()
+
+
+def lm_serve(torch, cfg, model):
+    """14c: examples/serve_lm.py's loop (a batch prefilled, then greedy
+    decode steps), then the Engine over 16 mixed requests, twice from the
+    same seed."""
+    from repro_torch import models
+    from repro_torch.data import model_batch, token_batch
+    from repro_torch.serve import Engine, Request
+    B, plen, steps = LM_LOOP
+    batch = model_batch(cfg, B, plen)
+
+    def loop():
+        logits, cache = models.prefill(model, batch, cfg, plen + steps)
+        tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        out = [tok]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = models.decode_step(model, cache, tok, cfg)
+            tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+            out.append(tok)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, torch.cat(out, 1)
+    loop()                                    # warm-up
+    wall, seq = loop()
+    check(bool(((seq >= 0) & (seq < cfg.vocab_size)).all()),
+          "14c: a token outside the vocabulary")
+    print(f"14c serve_lm loop B={B} prompt={plen} {steps} greedy decode steps: "
+          f"ok tokens_per_s={B * steps / wall:.1f} ms_per_step="
+          f"{wall / steps * 1e3:.3f}", flush=True)
+    logits, cache = models.prefill(model, batch, cfg, plen + steps)
+    tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+
+    def decode(n=8):
+        nonlocal cache
+        for _ in range(n):
+            _, cache = models.decode_step(model, cache, tok, cfg)
+    lm_profile(torch, "14c decode_step B=4 (8 steps)", decode, 8)
+
+    slots, s_max, max_new = LM_ENGINE
+    prompts = [token_batch(cfg.vocab_size, 1, n, seed=3, step=i)["tokens"][0]
+               for i, n in enumerate(LM_PROMPTS)]
+
+    def serve():
+        eng = Engine(model, cfg, slots=slots, s_max=s_max)
+        for i, p in enumerate(prompts):       # odd uids stochastic, uid 1 top-p
+            eng.submit(Request(uid=i, tokens=p, max_new=max_new,
+                               temperature=0.7 if i % 2 else 0.0,
+                               top_k=40 if i % 2 else 0,
+                               top_p=0.9 if i == 1 else 1.0))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        n_steps = 0
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            while eng.pending or eng.alive.any():
+                eng.step()
+                n_steps += 1
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return (eng, n_steps, wall, sync_warnings(caught),
+                torch.cuda.max_memory_allocated() - base)
+    runs = []
+    for run in ("first", "second"):
+        eng, n_steps, wall, syncs, peak = serve()
+        outs = {r.uid: r.out for r in eng.done}
+        label = f"14c Engine(slots={slots}, s_max={s_max}) {run} run"
+        check(sorted(outs) == list(range(len(prompts))), f"{label}: requests lost")
+        check(all(len(o) == max_new and all(0 <= t < cfg.vocab_size for t in o)
+                  for o in outs.values()),
+              f"{label}: a request without {max_new} tokens in the vocabulary")
+        predicted = n_steps + len(prompts)    # one a step, one an admission
+        if len(syncs) != predicted or eng.reads != predicted:
+            report_syncs(syncs)
+        check(len(syncs) == eng.reads == predicted,
+              f"{label}: {len(syncs)} synchronising calls, {eng.reads} reads, "
+              f"{predicted} predicted")
+        ttft = np.array([r.t_first - r.t_submit for r in eng.done]) * 1e3
+        buckets = sorted({eng._bucket(len(p)) for p in prompts})
+        print(f"{label}: ok requests={len(outs)} tokens={len(outs) * max_new} "
+              f"buckets={buckets} steps={n_steps} wall_s={wall:.3f} "
+              f"tokens_per_s={len(outs) * max_new / wall:.1f} "
+              f"ttft_mean_ms={ttft.mean():.2f} ttft_p99_ms="
+              f"{np.percentile(ttft, 99):.2f} sync_warnings={len(syncs)} "
+              f"(= steps + admissions) peak_bytes={peak}", flush=True)
+        runs.append(outs)
+    check(runs[0] == runs[1], "14c: a second run from the same seed gave "
+          "other tokens")
+    print("14c: the second run's tokens equal the first's (greedy and "
+          "stochastic, PRNGKey(0))", flush=True)
+
+
+def lm_profile(torch, label, fn, calls):
+    """One profiled run of ``fn`` (``calls`` model calls): wall, device
+    busy time and idle share, kernels a call, the largest kernels."""
+    prof = device_profile(torch, fn)
+    check(prof is not None, f"{label}: the profiler recorded no device time")
+    wall, busy, launches, copy_ms, copies, by_name = prof
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    print(f"{label} profile: wall_ms={wall:.3f} device_busy_ms={busy:.3f} "
+          f"idle_share={1 - busy / wall:.4f} kernels_per_call={launches / calls:.1f} "
+          f"copies={copies} ({copy_ms:.3f} ms) top="
+          f"{[(name[:60], round(ms, 3), count) for name, (ms, count) in top]}",
+          flush=True)
+
+
+def lm_curation(torch, engine, cfg, model, counters, results):
+    """14d: the corpus embedded by bf16 forward(return_hidden=True), mean
+    pooled in f32; select_coreset in memory against impl="ref"; kernels
+    #1, #2s and #5 alone at its shape against their plain versions.
+    Returns select_coreset's launches."""
+    from repro_torch import models
+    from repro_torch.core import embed_batches, select_coreset
+    from repro_torch.data import token_batch
+    from repro_torch.data.source import HostSource
+    nb, b, s = LM_CORPUS
+    batches = [token_batch(cfg.vocab_size, b, s, seed=0, step=i)["tokens"]
+               for i in range(nb)]
+
+    def apply(tb):
+        return models.forward(model, {"tokens": tb}, cfg,
+                              return_hidden=True)[0].float()
+    embed_batches(apply, batches[:1])                       # warm-up
+    lm_profile(torch, f"14d forward(return_hidden=True) {b}x{s}",
+               lambda: embed_batches(apply, batches[:1]), 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = embed_batches(apply, batches)
+    torch.cuda.synchronize()
+    embed_ms = (time.perf_counter() - t0) * 1e3
+    n, d = nb * b, cfg.d_model
+    check(tuple(emb.shape) == (n, d) and emb.dtype == torch.float32
+          and bool(torch.isfinite(emb).all()), "14d: embeddings not finite "
+          f"f32 ({n}, {d})")
+
+    def fn(impl="auto"):
+        return select_coreset(emb, LM_K, impl=impl)
+    fn()                                                    # warm-up
+    res, launches, syncs, _, peak = counted_run(torch, fn, counters)
+    walls = wall_ms(torch, fn)
+    ref = fn("ref")
+    torch.cuda.synchronize()
+    label = f"14d select_coreset n={n} d={d} k={LM_K} (LM embeddings)"
+    for name in ("gon_step", "assign_sums", "argmin_rows"):
+        check(launches[name] > 0, f"{label}: kernel {name} never launched")
+    check(int(res.weights.sum()) == n, f"{label}: counts sum to "
+          f"{int(res.weights.sum())}")
+    moved, ties, idiff = check_coreset(torch, engine, label,
+                                       HostSource(emb.cpu().numpy()), n, res, ref)
+    print(f"{label}: ok centers_equal_to_ref=True representatives_differing="
+          f"{idiff} weight_rows_moved_vs_ref={moved} near_tie_rows={ties} "
+          f"radius2={res.radius2.item()!r} embed_wall_ms={embed_ms:.3f} "
+          f"({n} sequences x {s} tokens, {cfg.compute_dtype}) select_coreset_wall_ms="
+          f"{[round(w, 3) for w in walls]} launches="
+          f"{ {k: v for k, v in launches.items() if v} } "
+          f"sync_warnings={len(syncs)} peak_bytes={peak}", flush=True)
+    lm_kernels(torch, engine, emb, res.centers, results)
+    return launches
+
+
+def lm_kernels(torch, engine, x, c, results):
+    """Kernels #1, #2s and #5 alone at the curation's shape (1 x n x d, k
+    centers), against their plain versions, with times, bounds and the
+    library's time where one PyTorch call computes the same."""
+    from repro_torch.kernels.fused_stream import argmin_carry, fused_argmin_cuda
+    n, d = x.shape
+    k = c.shape[0]
+    shape = f"{n}x{d} k={k}"
+    # 1: the GON step from the distances to center row 0, the next center row 1
+    x3 = x[None]
+    md = engine.fused_min_argmax(x3, x3[:, 0], torch.full(
+        (1, n), 3.4e38, device=x.device), impl="ref")[0].clone()
+    got, want = gon_step_pair(torch, engine, x3, x3[:, 1], md)
+    torch.cuda.synchronize()
+    err = (got[0] - want[0]).abs().max().item()
+    check(torch.allclose(got[0], want[0], **GON_TOL)
+          and torch.allclose(got[1], want[1], **GON_TOL),
+          f"14d gon_step {shape}: beyond rtol 1e-5 (max err {err})")
+    top = torch.topk(want[0], 2, dim=1).values
+    if bool(((top[:, 0] - top[:, 1]) > 1e-5 * top[:, 0].abs()).all()):
+        check(torch.equal(got[2], want[2]), f"14d gon_step {shape}: far index")
+    ws = engine.gon_workspace(1, x3, impl="kernel")
+    centers = torch.zeros((1, 2, d), device=x.device)
+    indices = torch.zeros((1, 2), dtype=torch.int32, device=x.device)
+    ct = x3[:, 1]
+    ms = device_ms(torch, lambda: engine.fused_min_argmax(
+        x3, ct, md, impl="kernel", ws=ws, centers=centers, indices=indices, slot=1))
+    plain = device_ms(torch, lambda: engine.fused_min_argmax(
+        x3, ct, md, impl="ref", centers=centers, indices=indices, slot=1))
+    b_ms, b_by = bound(4 * (n * d + d + 2 * n + 2), n * (3 * d + 2))
+    lm_result(results, "gon_step", (1, n, d, "lm"), err, ms, plain, b_ms, b_by, None)
+    # 2s: the cluster counts of select_coreset in memory
+    outs = [engine.assign_sums(x, c, torch.zeros((k,), dtype=torch.int32,
+                                                 device=x.device), impl=impl)
+            for impl in ("kernel", "ref")]
+    torch.cuda.synchronize()
+    tol = dist2_tol(x, c)
+    two = torch.topk(engine.ref.pairwise_dist2(x, c), 2, dim=-1, largest=False).values
+    ties = int(((two[:, 1] - two[:, 0]) <= 2 * tol).sum())
+    err = (outs[0] - outs[1]).abs().max().item()
+    check(int(outs[0].sum()) == n and err <= ties,
+          f"14d assign_sums {shape}: counts differ beyond the {ties} near ties")
+    sums = torch.zeros((k,), dtype=torch.int32, device=x.device)
+    ms = device_ms(torch, lambda: engine.assign_sums(x, c, sums, impl="kernel"))
+    plain = device_ms(torch, lambda: engine.assign_sums(x, c, sums, impl="ref"))
+    b_ms, b_by = bound(4 * (n * d + k * d + k), n * k * (2 * d + 5) + 2 * d * (n + k))
+    lm_result(results, "assign_sums", (n, k, d, "lm"), err, ms, plain, b_ms, b_by,
+              None, f"near_tie_rows={ties}")
+    # 5: each center's nearest row (its representative)
+    got = engine.fused_argmin(x, c, impl="kernel")
+    want = engine.fused_argmin(x, c, impl="ref")
+    torch.cuda.synchronize()
+    err = (got[0] - want[0]).abs().max().item()
+    tol = dist2_tol(c, x[want[1].long()])
+    check(bool(((got[0] - want[0]).abs() <= tol).all()),
+          f"14d argmin_rows {shape}: d2 beyond tolerance ({err})")
+    two = torch.topk(engine.ref.pairwise_dist2(c, x), 2, dim=1, largest=False).values
+    unique = (two[:, 1] - two[:, 0]) > 2 * tol
+    check(torch.equal(got[1][unique], want[1][unique]),
+          f"14d argmin_rows {shape}: row differs where unique")
+    fresh = iter([argmin_carry(k, x.device) for _ in range(23)])
+    ms = device_ms(torch, lambda: fused_argmin_cuda(x, c, next(fresh)))
+    plain = device_ms(torch, lambda: engine.fused_argmin(x, c, impl="ref"), reps=5)
+    lib = device_ms(torch, lambda: torch.cdist(c, x).min(1), reps=5)
+    b_ms, b_by = bound(4 * (n * d + k * d) + 16 * k,
+                       n * k * (2 * d + 5) + 2 * d * (n + k))
+    lm_result(results, "argmin_rows", (n, k, d, "lm"), err, ms, plain, b_ms, b_by,
+              lib, "library: torch.cdist(c, x).min(1)")
+
+
+def lm_result(results, name, shape, err, ms, plain, b_ms, b_by, lib, note=""):
+    print(f"14d kernel {name} {'x'.join(map(str, shape[:3]))}: ok "
+          f"max_abs_err={err:.3g} kernel_ms={ms:.5f} plain_ms={plain:.5f} "
+          f"library_ms={fmt(lib)} bound_ms={b_ms:.5f} ({b_by}) {note}", flush=True)
+    results.append(dict(kernel=name, shape=shape, tier="float", err=err, ms=ms,
+                        plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=lib))
+
+
 def digest(*tensors) -> str:
     """SHA-1 of the tensors' bytes, in order: equal digests, bitwise equal
     results."""
@@ -3835,6 +4215,7 @@ def main() -> int:
                                       HostSource(kdd_host(P)))
     mesh_totals = phase_mesh(torch, engine, P, counters)
     cluster_totals = phase_cluster(torch, P, counters)
+    lm_totals = phase_lm(torch, engine, counters, results)
 
     # times at each path's first shape on float inputs — in memory: GON step
     # m=50, per=20000, d=2; assign n=1e6, k=25, d=2 (paper Fig. 4); streamed:
@@ -3844,8 +4225,9 @@ def main() -> int:
     # the batched assign at m=50, per=20000, t=125, d=2, the sums entry at
     # phase 9's round 1 (1 x 573,580 rows, t=125, d=38), pairwise at the
     # sketch's (101, 101, 38) bootstrap in f32. Launches: every launch of the
-    # kernel's wrapper in the counted runs of phases 3, 5, 7, 8, 10 and 12,
-    # phase 13's workers' counted runs (each counted in its own process), and
+    # kernel's wrapper in the counted runs of phases 3, 5, 7, 8, 10, 12 and
+    # 14 (14d's select_coreset), phase 13's workers' counted runs (each
+    # counted in its own process), and
     # phase 11's deterministic ones (11a's assign_bucketed calls, 11c's
     # ingest), each counted once, by the wrapper that made it (the streamed and batched
     # assign's cluster sums take the sums entry: assign_sums, not
@@ -3883,7 +4265,7 @@ def main() -> int:
                                                 weighted_totals, sketch_totals,
                                                 eim_totals, serve_totals,
                                                 serve_ingest_totals, mesh_totals,
-                                                cluster_totals))
+                                                cluster_totals, lm_totals))
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": max(r["err"] for r in mine),

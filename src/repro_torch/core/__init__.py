@@ -10,13 +10,14 @@ weighted and outlier objectives, the streaming sketch, and EIM).
   mrg.py      — MRG, paper Algorithm 1 (mrg / mrg_sim / mrg_distributed /
                 plan_rounds)
   coreset.py  — k-center coreset selection (data curation by diversity)
+                and embed_batches (mean-pooled LM embeddings to curate)
   outliers.py — (k,z)-center with outliers (kz_center)
   streaming.py — the doubling sketch over a stream (stream_update)
   metrics.py  — covering radius, assignment, brute-force OPT (tests)
   eim.py      — EIM, paper §4 (eim / eim_sample): the device path and the
                 streamed loop over an executor's filter rounds
 """
-from .coreset import Coreset, select_coreset  # noqa: F401
+from .coreset import Coreset, embed_batches, select_coreset  # noqa: F401
 from .eim import EIMResult, EIMSample, eim, eim_sample  # noqa: F401
 from .executor import (Executor, HostStreamExecutor, MeshExecutor,  # noqa: F401
                        Objective, SimExecutor, weighted_gon_block_fn)

@@ -8,7 +8,7 @@ cloud is bounded by host RAM or disk, not by device memory.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
@@ -116,3 +116,12 @@ def select_coreset(embeddings, k: int, *, mesh=None,
         cidx = ops.argmin_dist2_over_rows(emb, centers, impl=impl,
                                           chunk=chunk)
     return Coreset(cidx, centers, sums.to(torch.float32), r2)
+
+
+def embed_batches(apply_fn: Callable[[object], torch.Tensor],
+                  token_batches: Sequence) -> torch.Tensor:
+    """Mean-pooled final hidden states per example, stacked over batches.
+
+    ``apply_fn(tokens (b,s)) -> hidden (b,s,d)``; returns ``(n,d)`` in the
+    hidden states' dtype (the mean accumulates in f32)."""
+    return torch.cat([apply_fn(tb).mean(dim=1) for tb in token_batches], dim=0)

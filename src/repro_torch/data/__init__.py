@@ -1,5 +1,8 @@
 """Point sets and point sources.
 
+  pipeline.py  — the LM's synthetic token batches (a copy of
+                 ``repro.data.pipeline``: ``token_batch``, ``model_batch``,
+                 ``host_slice``)
   pointsets.py — the paper's generators (a verbatim copy of
                  ``repro.data.pointsets``: numpy Philox, so both packages
                  draw bitwise the same inputs from a seed; the JAX package
@@ -9,6 +12,7 @@
                  input of a multi-process run (``ProcessShardedSource``,
                  ``RemoteShard``) and the pinned upload ring
 """
+from .pipeline import host_slice, model_batch, token_batch  # noqa: F401
 from .pointsets import GENERATORS, gau, kddlike, pokerlike, unb, unif  # noqa: F401
 from .source import (  # noqa: F401
     ArraySource,

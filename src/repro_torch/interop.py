@@ -1,9 +1,9 @@
 """Carry state between the JAX package and the port.
 
-The system has no model weights; what crosses over is state: points,
-masks, running ``min_d2``, a round-1 center union and its ``valid`` mask,
-cluster weights, a streaming sketch. Both directions go through numpy, so
-neither package imports the other.
+What crosses over is state — points, masks, running ``min_d2``, a round-1
+center union and its ``valid`` mask, cluster weights, a streaming sketch —
+and the LM's weights (``params_from_jax``). Both directions go through
+numpy, so neither package imports the other.
 """
 from __future__ import annotations
 
@@ -53,3 +53,55 @@ def stream_state_from_jax(state):
         raise TypeError(f"centers: dtype {centers.dtype}, expected float32")
     return StreamState(np.array(centers), int(state.count), float(state.r),
                        int(state.k))
+
+
+def _exact_tensor(name: str, a) -> torch.Tensor:
+    """float32 as is; bfloat16 (``ml_dtypes.bfloat16``, as jax reads out)
+    bit for bit through a 16-bit integer view; anything else raises."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.float32:
+        return torch.from_numpy(np.array(a))
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    raise TypeError(f"{name}: dtype {a.dtype} has no exact counterpart "
+                    "(expected float32 or bfloat16)")
+
+
+def params_from_jax(params: dict, cfg, device):
+    """The JAX package's LM param pytree, read out as numpy (e.g.
+    ``jax.tree.map(np.asarray, params)``), as the port's ``LM`` on
+    ``device``: the leading L axis of ``params["layers"]`` is unstacked
+    into ``layers.{i}``, every other path keeps its name (``embed``,
+    ``final_norm.scale``, ``lm_head``). Each array must match the port's
+    parameter in shape and dtype, and the two sets of names must be equal."""
+    from repro_torch.device import resolve_device
+    from repro_torch.models.lm import LM
+    flat = {}
+
+    def walk(path, node):
+        if isinstance(node, dict):
+            for key, child in node.items():
+                walk(path + (key,), child)
+        else:
+            flat[path] = node
+    walk((), params)
+    arrays = {}
+    for path, a in flat.items():
+        if path[0] == "layers":
+            for i in range(np.shape(a)[0]):
+                arrays[".".join(("layers", str(i)) + path[1:])] = np.asarray(a)[i]
+        else:
+            arrays[".".join(path)] = a
+    model = LM(cfg, device=resolve_device(device))
+    own = model.state_dict()
+    if set(own) != set(arrays):
+        raise KeyError(f"param names differ: missing {sorted(set(own) - set(arrays))}, "
+                       f"unexpected {sorted(set(arrays) - set(own))}")
+    with torch.no_grad():
+        for name, a in arrays.items():
+            t = _exact_tensor(name, a)
+            if t.shape != own[name].shape or t.dtype != own[name].dtype:
+                raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)}, the port "
+                                 f"holds {own[name].dtype} {tuple(own[name].shape)}")
+            own[name].copy_(t)
+    return model

@@ -160,7 +160,14 @@ def test_port_imports_no_jax():
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
             "repro_torch.data, repro_torch.interop, repro_torch.data.source, "
-            "repro_torch.kernels.fused_stream, repro_torch.core.coreset; "
+            "repro_torch.kernels.fused_stream, repro_torch.core.coreset, "
+            "repro_torch.models, repro_torch.models.layers, "
+            "repro_torch.models.lm, repro_torch.models.api, "
+            "repro_torch.configs, repro_torch.data.pipeline, "
+            "repro_torch.serve, repro_torch.serve.engine, "
+            "repro_torch.serve.sampler; "
+            "from repro_torch.configs import ARCH_IDS, get_config; "
+            "[get_config(a) for a in ARCH_IDS]; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'repro' not in sys.modules, 'repro imported'")
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
