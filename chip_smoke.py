@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port of MRG (paper Algorithm 1), coreset
 selection, the weighted and outlier objectives, the streaming sketch, EIM
 (paper §4), the online k-center service, the paper's machines as mesh
-shards and as separate processes, and the dense LM (serving, and curating
-its embeddings by k-center) on one GPU, in memory and out of core.
+shards and as separate processes, and the LM of every family (serving,
+and curating the dense model's embeddings by k-center) on one GPU, in
+memory and out of core.
 
     python3 chip_smoke.py        # from the root of a checkout, one Hopper card
 
@@ -196,6 +197,34 @@ Phases, each of which raises on failure (nothing is caught):
               (check_coreset), and kernels #1, #2s and #5 alone at (1 x
               4,096 x 896, k = 64) against their plain versions, with
               times, bounds and the library's time.
+  15. every other LM family at full width, one model at a time
+              (configs/*.py full(), random weights from a seed):
+              qwen2-vl-2b (vlm, M-RoPE), mamba2-370m (ssm), hymba-1.5b
+              (hybrid), whisper-large-v3 (encdec) at full depth, dbrx-132b
+              (moe) at 2 of its 40 layers (printed as a reduction: 40
+              layers of experts are past one card). 15a the bf16 model
+              built on the card, its parameters against param_counts plus
+              the extra scales, bytes, build seconds, peak memory; 15b the
+              architecture at depth 1 in f32 (whisper: 1 encoder + 1
+              decoder layer over frames (2, 1500, 1280); qwen2-vl 272
+              positions with patch embeddings): forward on the card against
+              the CPU's, within 1e-3 of the largest |logit|, greedy tokens
+              equal past twice that (MoE: tokens whose K-th and (K+1)-th
+              router probabilities lie within 1e-3 left out and counted);
+              15c prefill of 600 tokens (hymba 1,100, past its window) then
+              8 decode steps against forward, at full depth, in f32 (within
+              1e-3 of the largest |logit|) and in bf16 (within 5e-2; the
+              ssm and hybrid families' steps printed, their prefill held:
+              their bf16 decode drifts from forward in the JAX package too;
+              MoE at a drop-free capacity, positions whose routing flipped
+              left out and counted); 15d the Engine over 14c's 16 requests
+              for the four decoder-only models, twice from one key, the
+              same tokens, synchronising calls exactly one a step and one
+              an admission, tokens/s, TTFT mean and p99, peak memory, a
+              profile of 4 decode steps (kernels a step, idle share);
+              whisper a B = 4 prefill and 32 greedy decode steps through
+              models.api, twice, no synchronising call in the loop. The
+              whole run's seconds are printed before the kernels line.
 
 Prints the card's name and power limit, one JSON line describing every
 kernel, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -3717,8 +3746,7 @@ def lm_serve(torch, cfg, model):
     decode steps), then the Engine over 16 mixed requests, twice from the
     same seed."""
     from repro_torch import models
-    from repro_torch.data import model_batch, token_batch
-    from repro_torch.serve import Engine, Request
+    from repro_torch.data import model_batch
     B, plen, steps = LM_LOOP
     batch = model_batch(cfg, B, plen)
 
@@ -3750,13 +3778,24 @@ def lm_serve(torch, cfg, model):
             _, cache = models.decode_step(model, cache, tok, cfg)
     lm_profile(torch, "14c decode_step B=4 (8 steps)", decode, 8)
 
+    engine_runs(torch, cfg, model, "14c")
+
+
+def engine_runs(torch, cfg, model, label):
+    """The Engine over LM_PROMPTS' 16 mixed requests (LM_ENGINE: 8 slots,
+    s_max 512, 32 new tokens each; odd uids stochastic, uid 1 top-p), run
+    twice from the same seed: every request its tokens in the vocabulary,
+    synchronising calls exactly one a step and one an admission, the same
+    tokens both runs. Returns the second run's engine."""
+    from repro_torch.data import token_batch
+    from repro_torch.serve import Engine, Request
     slots, s_max, max_new = LM_ENGINE
     prompts = [token_batch(cfg.vocab_size, 1, n, seed=3, step=i)["tokens"][0]
                for i, n in enumerate(LM_PROMPTS)]
 
     def serve():
         eng = Engine(model, cfg, slots=slots, s_max=s_max)
-        for i, p in enumerate(prompts):       # odd uids stochastic, uid 1 top-p
+        for i, p in enumerate(prompts):
             eng.submit(Request(uid=i, tokens=p, max_new=max_new,
                                temperature=0.7 if i % 2 else 0.0,
                                top_k=40 if i % 2 else 0,
@@ -3781,30 +3820,33 @@ def lm_serve(torch, cfg, model):
     for run in ("first", "second"):
         eng, n_steps, wall, syncs, peak = serve()
         outs = {r.uid: r.out for r in eng.done}
-        label = f"14c Engine(slots={slots}, s_max={s_max}) {run} run"
-        check(sorted(outs) == list(range(len(prompts))), f"{label}: requests lost")
+        line = f"{label} Engine(slots={slots}, s_max={s_max}) {run} run"
+        check(sorted(outs) == list(range(len(prompts))), f"{line}: requests lost")
         check(all(len(o) == max_new and all(0 <= t < cfg.vocab_size for t in o)
                   for o in outs.values()),
-              f"{label}: a request without {max_new} tokens in the vocabulary")
+              f"{line}: a request without {max_new} tokens in the vocabulary")
         predicted = n_steps + len(prompts)    # one a step, one an admission
         if len(syncs) != predicted or eng.reads != predicted:
             report_syncs(syncs)
         check(len(syncs) == eng.reads == predicted,
-              f"{label}: {len(syncs)} synchronising calls, {eng.reads} reads, "
+              f"{line}: {len(syncs)} synchronising calls, {eng.reads} reads, "
               f"{predicted} predicted")
         ttft = np.array([r.t_first - r.t_submit for r in eng.done]) * 1e3
         buckets = sorted({eng._bucket(len(p)) for p in prompts})
-        print(f"{label}: ok requests={len(outs)} tokens={len(outs) * max_new} "
+        print(f"{line}: ok requests={len(outs)} tokens={len(outs) * max_new} "
               f"buckets={buckets} steps={n_steps} wall_s={wall:.3f} "
               f"tokens_per_s={len(outs) * max_new / wall:.1f} "
               f"ttft_mean_ms={ttft.mean():.2f} ttft_p99_ms="
               f"{np.percentile(ttft, 99):.2f} sync_warnings={len(syncs)} "
-              f"(= steps + admissions) peak_bytes={peak}", flush=True)
+              f"(= steps + admissions) syncs_per_step="
+              f"{(len(syncs) - len(prompts)) / n_steps:.3f} peak_bytes={peak}",
+              flush=True)
         runs.append(outs)
-    check(runs[0] == runs[1], "14c: a second run from the same seed gave "
+    check(runs[0] == runs[1], f"{label}: a second run from the same seed gave "
           "other tokens")
-    print("14c: the second run's tokens equal the first's (greedy and "
+    print(f"{label}: the second run's tokens equal the first's (greedy and "
           "stochastic, PRNGKey(0))", flush=True)
+    return eng
 
 
 def lm_profile(torch, label, fn, calls):
@@ -3952,6 +3994,353 @@ def lm_result(results, name, shape, err, ms, plain, b_ms, b_by, lib, note=""):
     results.append(dict(kernel=name, shape=shape, tier="float", err=err, ms=ms,
                         plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                         library_ms=lib))
+
+
+# Phase 15: every other LM family at full width (configs/*.py full(), bf16;
+# random weights from a seed): qwen2-vl-2b (vlm, M-RoPE), mamba2-370m (ssm),
+# hymba-1.5b (hybrid: 25 query heads over 5 KV heads, a 1,024 window on all
+# but layers 0, 8, 16, 24), dbrx-132b (moe, 16 experts top-4) and
+# whisper-large-v3 (encdec), one model at a time. dbrx keeps its widths and
+# is cut to 2 of its 40 layers: its experts alone are ~254 GB in bf16 at 40
+# layers, past one 80 GB card (2 layers: ~15.5 GB). kimi-k2 (~2 TB; one
+# layer's 384 experts ~34 GB) waits for the port of sharding/ (ROADMAP.md).
+FAMILIES = (("qwen2_vl_2b", None), ("mamba2_370m", None), ("hymba_1_5b", None),
+            ("dbrx_132b", 2), ("whisper_large_v3", None))
+FAM_PARITY = (2, 16)         # 15b: B x S at depth 1 (vlm: + its 256 patches)
+FAM_PROMPT = 600             # 15c: past the 512-query chunk, not a multiple
+#                              of SSD's chunk of 256
+FAM_PROMPTS = {"hybrid": 1100}       # past hymba's window of 1,024
+FAM_DECODE = 8
+FAM_BF16_RTOL = 5e-2         # 15c: bf16 rounds to 2^-8 relative, and the two
+#                              paths' products round apart (other kernels)
+FAM_BF16_RTOL_SSM = 0.15     # 15c mamba2: its sequence path rounds each of
+#                              the conv's products and sums in bf16, the step
+#                              path once, over 48 layers; at smoke width and
+#                              full depth the JAX package's own steps drift
+#                              0.37 of max|logit| from its forward and the
+#                              port's 0.28 (tests/test_torch_lm_families.py::
+#                              test_bf16_ssm_decode_drift); on an H100 (700 W)
+#                              at full width 0.113
+MOE_TIE = 1e-3               # 15b: K-th and (K+1)-th router probabilities
+#                              within this of each other (relative): the
+#                              card may pick either expert
+ENCDEC_LOOP = (4, 16, 32)    # 15d whisper: B, prompt tokens, decode steps
+
+
+class MoESpy:
+    """Wraps ``layers._moe_route`` while in use: keeps each call's router
+    probabilities and expert choices, sorted (``keep=True``), and counts
+    its dropped assignments (one read at the end). ``hit`` fails unless the
+    wrapper saw each MoE layer of the passes run under it."""
+
+    def __init__(self, torch, keep=False):
+        from repro_torch.models import layers
+        self.torch, self.layers, self.keep = torch, layers, keep
+        self.route = layers._moe_route
+        self.probs, self.choices, self.dropped = [], [], []
+
+    def __enter__(self):
+        def spy(xf, router, cfg, capacity_factor):
+            out = self.route(xf, router, cfg, capacity_factor)
+            if self.keep:
+                self.probs.append(out[0])
+                self.choices.append(out[2].sort(-1).values)
+            self.dropped.append((out[4] >= out[-1]).sum())
+            return out
+        self.layers._moe_route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.layers._moe_route = self.route
+
+    def drops(self) -> int:
+        return int(sum(self.dropped)) if self.dropped else 0
+
+    def hit(self, cfg, passes, what):
+        if cfg.family == "moe":
+            check(len(self.dropped) == passes * cfg.num_layers, f"{what}: the "
+                  f"router was seen {len(self.dropped)} times, expected "
+                  f"{passes} passes x {cfg.num_layers} layers")
+
+
+class DropFree:
+    """``layers.apply_moe`` at capacity factor E/K while in use: C = N·K/E ·
+    E/K = N, so no expert queue overflows (decode is drop-free by its floor
+    of min(64, N·K)); forward and prefill then compute what decode does.
+    ``calls`` counts the MoE layers run under it."""
+
+    def __init__(self, cfg):
+        from repro_torch.models import layers
+        self.layers, self.cfg = layers, cfg
+        self.apply = layers.apply_moe
+        self.calls = 0
+
+    def __enter__(self):
+        if self.cfg.family == "moe":
+            cf = self.cfg.num_experts / self.cfg.top_k
+
+            def drop_free(*args, **kw):
+                self.calls += 1
+                return self.apply(*args, **dict(kw, capacity_factor=cf))
+            self.layers.apply_moe = drop_free
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.apply_moe = self.apply
+
+
+def phase_families(torch):
+    print("== phase 15: every other LM family at full width: qwen2-vl-2b, "
+          "mamba2-370m, hymba-1.5b, dbrx-132b (2 of 40 layers), "
+          "whisper-large-v3 — 15a build, 15b f32 parity at depth 1 (card "
+          "against CPU), 15c prefill + decode against forward at full depth "
+          "(f32, then bf16), 15d serving (the Engine; whisper: prefill + "
+          "decode through models.api)", flush=True)
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t0 = time.perf_counter()
+    for arch, layers in FAMILIES:
+        cfg = get_config(arch)
+        if layers:
+            print(f"15 {cfg.name}: reduced num_layers {cfg.num_layers} -> "
+                  f"{layers} (every width as published)", flush=True)
+            cfg = cfg.replace(num_layers=layers)
+        fam_parity(torch, cfg)
+        f32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+        model = models.init_params(f32, seed=1)
+        fam_decode(torch, f32, model, LM_F32_RTOL)
+        del model
+        torch.cuda.empty_cache()
+        model = fam_build(torch, cfg)
+        fam_decode(torch, cfg, model, FAM_BF16_RTOL_SSM
+                   if cfg.family == "ssm" else FAM_BF16_RTOL)
+        if cfg.family == "encdec":
+            fam_encdec_loop(torch, cfg, model)
+        else:
+            eng = engine_runs(torch, cfg, model, f"15d {cfg.name}")
+            toks = torch.zeros((eng.B, 1), dtype=torch.int32, device=model.device)
+            cache = eng.cache
+
+            def decode(n=4):
+                nonlocal cache
+                for _ in range(n):
+                    _, cache = models.decode_step(model, cache, toks, cfg)
+            decode(1)
+            lm_profile(torch, f"15d {cfg.name} decode_step B={eng.B} "
+                       f"s_max={eng.S} (4 steps)", decode, 4)
+            del eng, cache
+        del model
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    print(f"phase 15 seconds={time.perf_counter() - t0:.1f}", flush=True)
+
+
+def fam_build(torch, cfg):
+    """15a: the bf16 model on the card; its parameter count against
+    param_counts() and the extra scales."""
+    from repro_torch import models
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = models.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    total, extra = cfg.param_counts()["total"], models.extra_params(cfg)
+    check(n == total + extra, f"15a {cfg.name}: {n} parameters, expected "
+          f"{total} + {extra}")
+    print(f"15a {cfg.name} {cfg.family} {cfg.param_dtype} layers={cfg.num_layers}"
+          f"{f'+{cfg.enc_layers} encoder' if cfg.enc_layers else ''}: ok "
+          f"params={n} (param_counts total {total} + extra scales {extra}) "
+          f"bytes={nbytes} build_seconds={build_s:.3f} "
+          f"peak_bytes={torch.cuda.max_memory_allocated() - base}", flush=True)
+    return model
+
+
+def fam_parity(torch, cfg):
+    """15b: the architecture at depth 1 in f32 (TF32 off): forward on the
+    card against forward on the CPU, same weights and inputs."""
+    from repro_torch.data import model_batch
+    from repro_torch.models import EncDec, LM
+    from repro_torch import models
+    one = dict(num_layers=1, param_dtype="float32", compute_dtype="float32")
+    if cfg.family == "encdec":
+        one["enc_layers"] = 1
+    f32 = cfg.replace(**one)
+    model = models.init_params(f32, seed=1)
+    cpu = (EncDec if f32.family == "encdec" else LM)(f32, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()},
+                        assign=True)
+    B, S = FAM_PARITY
+    if f32.family == "vlm":
+        S += f32.num_patches                  # patch and text positions
+    batch = model_batch(f32, B, S, seed=1)
+    t0 = time.perf_counter()
+    with MoESpy(torch, keep=True) as spy:
+        want = models.forward(cpu, batch, f32)[0]
+    cpu_s = time.perf_counter() - t0
+    spy.hit(f32, 1, f"15b {f32.name}")
+    got = models.forward(model, batch, f32)[0].cpu()
+    del cpu, model
+    torch.cuda.empty_cache()
+    keep = torch.ones((B, S), dtype=torch.bool)
+    if spy.probs:
+        K = f32.top_k
+        top = torch.topk(spy.probs[0], K + 1, dim=-1).values
+        keep = ~((top[:, K - 1] - top[:, K]) <= MOE_TIE * top[:, K - 1]).reshape(B, S)
+    tol = LM_F32_RTOL * want.abs().max().item()
+    err = (got - want).abs()[keep].max().item()
+    agree, sure, total = greedy_agree(torch, got[keep], want[keep], tol)
+    shape = " ".join(f"{k}={tuple(v.shape)}" for k, v in batch.items())
+    check(err <= tol, f"15b {f32.name}: the card's f32 forward is {err} from "
+          f"the CPU's (tolerance {tol})")
+    check(agree, f"15b {f32.name}: greedy tokens differ from the CPU's beyond "
+          "the margin")
+    print(f"15b {f32.name} f32 depth 1 {shape}: card against CPU ok "
+          f"max_abs_err={err:.3g} tolerance={tol:.3g} (1e-3 of max|logit| "
+          f"{want.abs().max().item():.4g}) greedy_equal_where_margin={sure}/"
+          f"{total} router_near_ties_left_out={int((~keep).sum())} "
+          f"moe_drops={spy.drops()} cpu_seconds={cpu_s:.2f}", flush=True)
+
+
+def fam_decode(torch, cfg, model, rtol):
+    """15c: prefill past the chunk (and hymba's window), then decode steps,
+    against forward over the whole sequence (MoE: at a drop-free capacity,
+    with forward's drops at the default capacity counted). The prefill's
+    last logits and the decode steps are held within ``rtol`` of the
+    largest |logit|; greedy tokens equal wherever the top-2 margin exceeds
+    twice that. A MoE position whose token the
+    step (or the prefill) sent to other experts than forward did, in any
+    layer (a near-tie of the router that rounding flipped), is left out
+    and counted."""
+    from repro_torch import models
+    from repro_torch.data import model_batch
+    n = FAM_PROMPTS.get(cfg.family, FAM_PROMPT)
+    total = n + FAM_DECODE
+    batch = model_batch(cfg, 1, total, seed=2)
+    pre = dict(batch, tokens=batch["tokens"][:, :n])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with MoESpy(torch) as spy:
+        models.forward(model, batch, cfg)
+    drops = spy.drops()
+    spy.hit(cfg, 1, f"15c {cfg.name} forward")
+    t0 = time.perf_counter()
+    with DropFree(cfg) as free, MoESpy(torch, keep=True) as fwd:
+        full = models.forward(model, batch, cfg)[0][0, n - 1:]
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with DropFree(cfg) as dec_free, MoESpy(torch, keep=True) as dec:
+        last, cache = models.prefill(model, pre, cfg, total)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        steps = [last[0, 0]]
+        for i in range(FAM_DECODE):
+            logits, cache = models.decode_step(
+                model, cache, batch["tokens"][:, n + i:n + i + 1], cfg)
+            steps.append(logits[0, 0])
+    steps = torch.stack(steps)
+    for spied, dropfree, passes, what in ((fwd, free, 1, "forward"),
+                                          (dec, dec_free, 1 + FAM_DECODE,
+                                           "prefill and steps")):
+        spied.hit(cfg, passes, f"15c {cfg.name} drop-free {what}")
+        if cfg.family == "moe":
+            check(dropfree.calls == passes * cfg.num_layers and spied.drops() == 0,
+                  f"15c {cfg.name}: the drop-free {what} ran {dropfree.calls} "
+                  f"MoE layers and dropped {spied.drops()} assignments")
+    tol = rtol * full.abs().max().item()
+    errs = (steps - full).abs().amax(-1).tolist()
+    keep = list(range(len(errs)))
+    flipped = []
+    if fwd.choices:           # per layer: forward's, then the prefill's and each step's
+        Lh = cfg.num_layers
+        for j in list(keep):
+            mine = dec.choices[j * Lh:(j + 1) * Lh]
+            if any(not torch.equal(m[-1], f[n - 1 + j]) for m, f in zip(mine, fwd.choices)):
+                keep.remove(j)
+                flipped.append(j)
+    held = [errs[j] for j in keep]
+    agree, sure, count = greedy_agree(torch, steps[keep], full[keep], tol)
+    extra = (f" moe_drops_at_cf_1.25={drops} (compared at cf "
+             f"{cfg.num_experts / cfg.top_k:g}: drop-free) routing_flipped_"
+             f"positions_left_out={flipped}" if cfg.family == "moe" else "")
+    print(f"15c {cfg.name} {cfg.compute_dtype} prefill {n} tokens + {FAM_DECODE} "
+          f"decode steps against forward over {total}: max_abs_err_by_position="
+          f"{[float(f'{e:.3g}') for e in errs]} tolerance={tol:.3g} ({rtol:g} of "
+          f"max|logit| {full.abs().max().item():.4g}) "
+          f"greedy_equal_where_margin={sure}/{count} forward_s={fwd_s:.3f} "
+          f"prefill_s={pre_s:.3f} peak_bytes="
+          f"{torch.cuda.max_memory_allocated() - base}{extra}", flush=True)
+    check(bool(torch.isfinite(steps).all()), f"15c {cfg.name}: non-finite logits")
+    check(len(held) > len(errs) // 2, f"15c {cfg.name}: most positions left out")
+    check(max(held) <= tol, f"15c {cfg.name} {cfg.compute_dtype}: logits "
+          f"{max(held)} from forward's (tolerance {tol})")
+    check(agree, f"15c {cfg.name} {cfg.compute_dtype}: greedy tokens differ "
+          "from forward's beyond the margin")
+    check(int(cache["pos"][0]) == total, f"15c {cfg.name}: the cache's position")
+    del cache
+
+
+def fam_encdec_loop(torch, cfg, model):
+    """15d whisper: a batch of frames prefilled (the encoder, the cross
+    caches), then greedy decode steps through models.api, twice: the same
+    tokens; no synchronising call inside the decode loop."""
+    from repro_torch.data import model_batch
+    from repro_torch import models
+    B, plen, steps = ENCDEC_LOOP
+    batch = model_batch(cfg, B, plen)
+
+    def loop():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, cache = models.prefill(model, batch, cfg, plen + steps)
+        tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = [tok]
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            for _ in range(steps):
+                logits, cache = models.decode_step(model, cache, tok, cfg)
+                tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+                out.append(tok)
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return (t1 - t0, t2 - t1, torch.cat(out, 1), sync_warnings(caught),
+                torch.cuda.max_memory_allocated() - base, cache)
+    runs = []
+    for run in ("first", "second"):
+        pre_s, wall, seq, syncs, peak, cache = loop()
+        check(bool(((seq >= 0) & (seq < cfg.vocab_size)).all()),
+              f"15d {cfg.name}: a token outside the vocabulary")
+        if syncs:
+            report_syncs(syncs)
+        check(not syncs, f"15d {cfg.name}: {len(syncs)} synchronising calls in "
+              "the decode loop")
+        print(f"15d {cfg.name} {run} run: B={B} frames={tuple(batch['frames'].shape)} "
+              f"prompt={plen} prefill_ms={pre_s * 1e3:.3f} {steps} greedy decode "
+              f"steps: ok tokens_per_s={B * steps / wall:.1f} ms_per_step="
+              f"{wall / steps * 1e3:.3f} sync_warnings=0 peak_bytes={peak}",
+              flush=True)
+        runs.append(seq)
+    check(torch.equal(runs[0], runs[1]), f"15d {cfg.name}: a second run gave "
+          "other tokens")
+    tok = runs[1][:, -1:].contiguous()
+
+    def decode(n=4):
+        nonlocal cache
+        for _ in range(n):
+            _, cache = models.decode_step(model, cache, tok, cfg)
+    lm_profile(torch, f"15d {cfg.name} decode_step B={B} (4 steps)", decode, 4)
 
 
 def digest(*tensors) -> str:
@@ -4136,6 +4525,7 @@ def compare_times(srcs) -> int:
 
 
 def main() -> int:
+    t_run = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4216,6 +4606,7 @@ def main() -> int:
     mesh_totals = phase_mesh(torch, engine, P, counters)
     cluster_totals = phase_cluster(torch, P, counters)
     lm_totals = phase_lm(torch, engine, counters, results)
+    phase_families(torch)
 
     # times at each path's first shape on float inputs — in memory: GON step
     # m=50, per=20000, d=2; assign n=1e6, k=25, d=2 (paper Fig. 4); streamed:
@@ -4276,6 +4667,7 @@ def main() -> int:
             kernels[-1]["routes"] = {"x".join(map(str, r["shape"][:3])) + " "
                                      + r["shape"][3]: r["route"]
                                      for r in mine if r["tier"] == "float"}
+    print(f"chip_smoke seconds={time.perf_counter() - t_run:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

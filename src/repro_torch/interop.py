@@ -67,14 +67,22 @@ def _exact_tensor(name: str, a) -> torch.Tensor:
                     "(expected float32 or bfloat16)")
 
 
+STACKED = ("layers", "enc_layers", "dec_layers")   # leading L axis in JAX
+
+
 def params_from_jax(params: dict, cfg, device):
-    """The JAX package's LM param pytree, read out as numpy (e.g.
-    ``jax.tree.map(np.asarray, params)``), as the port's ``LM`` on
-    ``device``: the leading L axis of ``params["layers"]`` is unstacked
-    into ``layers.{i}``, every other path keeps its name (``embed``,
-    ``final_norm.scale``, ``lm_head``). Each array must match the port's
-    parameter in shape and dtype, and the two sets of names must be equal."""
+    """The JAX package's model param pytree, read out as numpy (e.g.
+    ``jax.tree.map(np.asarray, params)``), as the port's model on
+    ``device``: an ``LM``, or an ``EncDec`` for the encdec family. The
+    leading L axis of each stacked group (``layers``; ``enc_layers`` and
+    ``dec_layers``) is unstacked into ``{group}.{i}``; every other path
+    keeps its name (``embed``, ``final_norm.scale``, ``lm_head``,
+    ``patch_proj``, ``enc_norm.bias``, ``layers.{i}.moe.router``,
+    ``layers.{i}.ssm.A_log``, ``layers.{i}.bnorm_a``, ...). Each array must
+    match the port's parameter in shape and dtype, and the two sets of
+    names must be equal."""
     from repro_torch.device import resolve_device
+    from repro_torch.models.encdec import EncDec
     from repro_torch.models.lm import LM
     flat = {}
 
@@ -87,12 +95,13 @@ def params_from_jax(params: dict, cfg, device):
     walk((), params)
     arrays = {}
     for path, a in flat.items():
-        if path[0] == "layers":
+        if path[0] in STACKED:
             for i in range(np.shape(a)[0]):
-                arrays[".".join(("layers", str(i)) + path[1:])] = np.asarray(a)[i]
+                arrays[".".join((path[0], str(i)) + path[1:])] = np.asarray(a)[i]
         else:
             arrays[".".join(path)] = a
-    model = LM(cfg, device=resolve_device(device))
+    cls = EncDec if cfg.family == "encdec" else LM
+    model = cls(cfg, device=resolve_device(device))
     own = model.state_dict()
     if set(own) != set(arrays):
         raise KeyError(f"param names differ: missing {sorted(set(own) - set(arrays))}, "

@@ -1,9 +1,15 @@
-"""Decoder-only LM, the dense family (port of ``repro.models.lm``).
+"""Decoder-only LM covering the dense / MoE / SSM / hybrid / VLM families
+(port of ``repro.models.lm``).
 
 ``LM`` holds the parameters under the JAX package's paths: the state_dict
 key ``layers.{i}.attn.wq`` is ``params["layers"]["attn"]["wq"][i]`` there
 (the reference stacks its layers on a leading L axis and scans them; here
-they are a ``ModuleList``, applied in a Python loop).
+they are a ``ModuleList``, applied in a Python loop). A layer's modules
+follow the family: ``ssm`` alone (ssm); attention and an SSM side by side
+with their branch norms ``bnorm_a``/``bnorm_s`` (hybrid); attention and
+``moe`` (moe); attention and ``mlp`` (dense, vlm). The vlm family adds
+``patch_proj``, which projects precomputed patch embeddings onto the
+first positions.
 
 Entry points
   init_params(cfg, seed=, device=)          -> LM
@@ -11,11 +17,15 @@ Entry points
   prefill(params, tokens, cfg, S_max)       -> (last_logits, cache)
   decode_step(params, cache, token, cfg)    -> (logits, cache)
 
-The decode cache is a dict: ``k``/``v`` (L, B, S_max, KV, hd) in the
-compute dtype and ``pos`` (B,) int32. ``decode_step`` writes its k/v rows
-into the cache's buffers in place and returns the cache with ``pos + 1``.
-Rematerialisation and sharding constraints only matter for training and
-meshes; they are not here.
+The decode cache is a dict: ``pos`` (B,) int32; ``k``/``v`` (L, B, S_max,
+KV, hd) in the compute dtype where the family has attention; ``state`` (L,
+B, nh, N, P) f32 and ``conv`` (L, B, K-1, din + 2N) in the compute dtype
+where it has an SSM. ``decode_step`` writes the new rows and states into
+the cache's buffers in place and returns the cache with ``pos + 1``.
+``prefill`` takes the SSM states from the same pass over the layers (the
+reference runs the blocks a second time for them; the states are the
+same). Rematerialisation and sharding constraints only matter for training
+and meshes; they are not here.
 """
 from __future__ import annotations
 
@@ -31,69 +41,90 @@ from repro_torch.device import resolve_device, upload
 from . import layers as L
 from .config import ModelConfig
 
+ATTN_FAMILIES = ("dense", "moe", "vlm", "hybrid")
+SSM_FAMILIES = ("ssm", "hybrid")
 
-def require_dense(cfg: ModelConfig) -> None:
-    """Raise for a family the port does not run yet."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; the "
-            "port runs 'dense', and a later slice of ROADMAP.md ports "
-            f"{cfg.family!r}")
+
+def require_decoder(cfg: ModelConfig) -> None:
+    """Raise for the encoder-decoder family, which ``models.encdec`` runs."""
+    if cfg.family == "encdec":
+        raise ValueError(f"{cfg.name}: the encdec family runs through "
+                         "repro_torch.models.encdec (or models.api), not lm")
 
 
 # ---------------------------------------------------------------------------
 # Modules and init
 # ---------------------------------------------------------------------------
 
+def _ones(d: int, device) -> nn.Parameter:
+    return L._param(torch.ones((d,), dtype=torch.float32, device=device))
+
+
 class Block(nn.Module):
-    """One dense transformer block: ``ln1``, ``attn``, ``ln2``, ``mlp``."""
+    """One layer of the family: ``ln1`` and ``ssm`` (ssm); ``ln1``,
+    ``attn``, ``ssm``, ``bnorm_a``, ``bnorm_s``, ``ln2``, ``mlp``
+    (hybrid); ``ln1``, ``attn``, ``ln2`` and ``moe`` (moe) or ``mlp``."""
 
     def __init__(self, cfg: ModelConfig, gen=None, *, device=None):
         super().__init__()
+        fam = cfg.family
+        if gen is not None:
+            device = gen.device
         self.ln1 = L.init_norm(cfg, device=device)
+        if fam == "ssm":
+            self.ssm = L.init_ssm(cfg, gen, device=device)
+            return
         self.attn = L.init_attention(cfg, gen, device=device)
+        if fam == "hybrid":
+            self.ssm = L.init_ssm(cfg, gen, device=device)
+            self.bnorm_a = _ones(cfg.d_model, device)
+            self.bnorm_s = _ones(cfg.d_model, device)
         self.ln2 = L.init_norm(cfg, device=device)
-        self.mlp = L.init_mlp(cfg, gen, device=device)
+        if fam == "moe":
+            self.moe = L.init_moe(cfg, gen, device=device)
+        else:
+            self.mlp = L.init_mlp(cfg, gen, device=device)
 
 
 class LM(nn.Module):
-    """``embed (V, D)``, ``layers``, ``final_norm`` and, untied,
-    ``lm_head (D, V)``. Drawn from ``gen`` (a ``torch.Generator`` on the
-    target device) in that order, or left uninitialised on ``device`` for
-    weights carried in (``interop.params_from_jax``)."""
+    """``embed (V, D)``, ``layers``, ``final_norm``, ``lm_head (D, V)``
+    where untied, and ``patch_proj (D, D)`` where the config has a vision
+    frontend. Drawn from ``gen`` (a ``torch.Generator`` on the target
+    device) in that order, or left uninitialised on ``device`` for weights
+    carried in (``interop.params_from_jax``)."""
 
     def __init__(self, cfg: ModelConfig, gen=None, *, device=None):
         super().__init__()
-        require_dense(cfg)
+        require_decoder(cfg)
         self.cfg = cfg
         if gen is not None:
             device = gen.device
         V, D = cfg.vocab_size, cfg.d_model
         self.embed = L._param(L._dense_init(gen, (V, D), 1.0, L.pdt(cfg), device))
-        self.layers = nn.ModuleList(_init_layer(cfg, gen, device)
+        self.layers = nn.ModuleList(Block(cfg, gen, device=device)
                                     for _ in range(cfg.num_layers))
         self.final_norm = L.init_norm(cfg, device=device)
-        self.lm_head = None
+        self.lm_head = self.patch_proj = None
         if not cfg.tie_embeddings:
             self.lm_head = L._param(L._dense_init(gen, (D, V), 1.0, L.pdt(cfg),
                                                   device))
+        if cfg.frontend == "vision_stub":
+            self.patch_proj = L._param(L._dense_init(gen, (D, D), 1.0,
+                                                     L.pdt(cfg), device))
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
 
-def _init_layer(cfg: ModelConfig, gen, device) -> Block:
-    return Block(cfg, gen, device=device)
-
-
 @torch.no_grad()
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> LM:
     """The model with weights drawn from ``torch.Generator(device)`` seeded
     ``seed``: N(0, 1) in f32 times ``1 / sqrt(fan_in)``, cast to the param
-    dtype; norm scales 1, biases 0. ``device=None`` is the card (raises
-    without one). Not bitwise the JAX package's init: carry its weights
-    with ``interop.params_from_jax`` for that."""
+    dtype (the router stays f32); norm scales 1, biases 0, the SSM's
+    ``A_log`` and ``dt_bias`` 0 and ``D`` 1. ``device=None`` is the card
+    (raises without one). Not bitwise the JAX package's init: carry its
+    weights with ``interop.params_from_jax`` for that."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -107,7 +138,11 @@ def _layer_flags(cfg: ModelConfig) -> list:
     return [not cfg.window] * cfg.num_layers
 
 
-def _window(cfg: ModelConfig) -> int:
+def _window(cfg: ModelConfig, is_global: bool) -> int:
+    """The attention window of a layer: hybrid's is 0 on its global layers
+    and ``cfg.window`` on the others."""
+    if cfg.family == "hybrid":
+        return 0 if is_global else cfg.window
     return cfg.window if not cfg.global_every else 0
 
 
@@ -119,30 +154,73 @@ def _residual(x, rs: float, out):
     return x + out if rs == 1.0 else x + rs * out
 
 
+def _branch_norm(out, scale, cfg: ModelConfig):
+    """Hybrid's per-branch RMS norm, in f32."""
+    return out * torch.rsqrt(out.to(torch.float32).square().mean(-1, keepdim=True)
+                             + cfg.norm_eps) * scale
+
+
+def _mix(x, lp: Block, attn_out, ssm_out, cfg: ModelConfig):
+    """Hybrid: the mean of the two normed branches, in ``x``'s dtype."""
+    na = _branch_norm(attn_out, lp.bnorm_a, cfg)
+    ns = _branch_norm(ssm_out, lp.bnorm_s, cfg)
+    return _residual(x, cfg.residual_scale, (0.5 * (na + ns)).to(x.dtype))
+
+
+def _ffn(x, lp: Block, cfg: ModelConfig, extra: dict):
+    """The second half of a block: ``ln2``, then the MLP or the MoE (its
+    aux loss into ``extra``)."""
+    h2 = L.apply_norm(lp.ln2, x, cfg)
+    if cfg.family == "moe":
+        out, extra["aux"] = L.apply_moe(lp.moe, h2, cfg)
+    else:
+        out = L.apply_mlp(lp.mlp, h2, cfg)
+    return _residual(x, cfg.residual_scale, out)
+
+
 def _block_fwd(x, lp: Block, is_global, cfg: ModelConfig, positions,
                cos_sin=None):
-    """One transformer block over the full sequence. Returns (x', (k,v))."""
-    rs = cfg.residual_scale
+    """One block over the full sequence. Returns (x', extra): the layer's
+    ``k``/``v``, its SSM ``state``/``conv`` caches and the MoE ``aux``, as
+    the family has them."""
+    fam = cfg.family
     h = L.apply_norm(lp.ln1, x, cfg)
-    attn_out, kv = L.attention_block(lp.attn, h, cfg, positions=positions,
-                                     window=_window(cfg), cos_sin=cos_sin)
-    x = _residual(x, rs, attn_out)
-    h2 = L.apply_norm(lp.ln2, x, cfg)
-    return _residual(x, rs, L.apply_mlp(lp.mlp, h2, cfg)), kv
+    extra: Dict[str, Any] = {}
+    if fam == "ssm":
+        out, extra["state"], extra["conv"] = L.ssm_block(lp.ssm, h, cfg)
+        return _residual(x, cfg.residual_scale, out), extra
+    attn_out, (extra["k"], extra["v"]) = L.attention_block(
+        lp.attn, h, cfg, positions=positions, window=_window(cfg, is_global),
+        cos_sin=cos_sin)
+    if fam == "hybrid":
+        ssm_out, extra["state"], extra["conv"] = L.ssm_block(lp.ssm, h, cfg)
+        x = _mix(x, lp, attn_out, ssm_out, cfg)
+    else:
+        x = _residual(x, cfg.residual_scale, attn_out)
+    return _ffn(x, lp, cfg, extra), extra
 
 
 def _block_decode(x, lp: Block, cache_l, is_global, pos, cfg: ModelConfig,
                   cos_sin=None):
-    """One block, single-token decode. ``cache_l``: the layer's ``k``/``v``
-    views, written in place."""
-    rs = cfg.residual_scale
+    """One block, single-token decode. ``cache_l``: the layer's cache views
+    (``k``/``v`` written in place); returns (x', the SSM's new ``state``
+    and ``conv``, for the caller to write)."""
+    fam = cfg.family
     h = L.apply_norm(lp.ln1, x, cfg)
-    attn_out, ck, cv = L.attention_decode(
-        lp.attn, h, cache_l["k"], cache_l["v"], pos, cfg, window=_window(cfg),
-        cos_sin=cos_sin)
-    x = _residual(x, rs, attn_out)
-    h2 = L.apply_norm(lp.ln2, x, cfg)
-    return _residual(x, rs, L.apply_mlp(lp.mlp, h2, cfg)), {"k": ck, "v": cv}
+    new: Dict[str, Any] = {}
+    if fam in SSM_FAMILIES:
+        ssm_out, new["state"], new["conv"] = L.ssm_block(
+            lp.ssm, h, cfg, state=cache_l["state"], conv_cache=cache_l["conv"])
+        if fam == "ssm":
+            return _residual(x, cfg.residual_scale, ssm_out), new
+    attn_out, _, _ = L.attention_decode(
+        lp.attn, h, cache_l["k"], cache_l["v"], pos, cfg,
+        window=_window(cfg, is_global), cos_sin=cos_sin)
+    if fam == "hybrid":
+        x = _mix(x, lp, attn_out, ssm_out, cfg)
+    else:
+        x = _residual(x, cfg.residual_scale, attn_out)
+    return _ffn(x, lp, cfg, {}), new
 
 
 # ---------------------------------------------------------------------------
@@ -158,8 +236,23 @@ def as_tokens(tokens, device) -> torch.Tensor:
     return upload(np.asarray(tokens, np.int32), torch.device(device))
 
 
-def _embed(params: LM, tokens, cfg: ModelConfig):
-    return F.embedding(tokens, params.embed).to(L.dt(cfg))
+def as_embeds(a, device) -> torch.Tensor:
+    """Precomputed embeddings (a numpy array or a tensor) as a tensor on
+    ``device``, queued without a wait."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    return upload(np.asarray(a), torch.device(device))
+
+
+def _embed(params: LM, tokens, cfg: ModelConfig, patch_embeds=None):
+    """Token embeddings; with ``patch_embeds`` (B, P, D) their projection
+    through ``patch_proj`` takes the first P positions."""
+    x = F.embedding(tokens, params.embed).to(L.dt(cfg))
+    if patch_embeds is not None:
+        pe = L.matmul(as_embeds(patch_embeds, x.device).to(L.dt(cfg)),
+                      params.patch_proj).to(L.dt(cfg))
+        x = torch.cat([pe, x[:, pe.shape[1]:]], 1)
+    return x
 
 
 def head_weights(params: LM, cfg: ModelConfig):
@@ -182,16 +275,22 @@ def _logits(params: LM, x, cfg: ModelConfig):
 
 
 def default_positions(cfg: ModelConfig, B: int, S: int, device=None):
-    if cfg.rope_type == "mrope":
-        raise NotImplementedError("M-RoPE is not ported yet (the vlm family)")
-    return torch.arange(S, device=device)[None, :].expand(B, S)
+    """arange(S) for each row: (B, S), or (3, B, S) for M-RoPE (all three
+    components equal)."""
+    pos = torch.arange(S, device=device)[None, :].expand(B, S)
+    return pos[None].expand(3, B, S) if cfg.rope_type == "mrope" else pos
 
 
-def _cos_sin(cfg: ModelConfig, positions):
-    """RoPE's cos/sin at ``positions``, once for all layers."""
-    if cfg.rope_type != "rope":
-        return None
-    return L.rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
+def _run(params: LM, tokens, cfg: ModelConfig, positions, patch_embeds):
+    """Embed, then yield (layer index, x after the layer, its extra)."""
+    B, S = tokens.shape
+    x = _embed(params, tokens, cfg, patch_embeds)
+    if positions is None:
+        positions = default_positions(cfg, B, S, tokens.device)
+    cos_sin = L.rope_for(cfg, positions)
+    for i, (lp, flag) in enumerate(zip(params.layers, _layer_flags(cfg))):
+        x, extra = _block_fwd(x, lp, flag, cfg, positions, cos_sin)
+        yield i, x, extra
 
 
 # ---------------------------------------------------------------------------
@@ -199,74 +298,87 @@ def _cos_sin(cfg: ModelConfig, positions):
 # ---------------------------------------------------------------------------
 
 def forward(params: LM, tokens, cfg: ModelConfig, *, positions=None,
-            return_hidden: bool = False):
+            patch_embeds=None, return_hidden: bool = False):
     """tokens (B,S) -> (logits (B,S,V) f32, aux dict).
 
-    ``return_hidden=True`` yields the final-norm'd hidden states (B,S,D) in
-    the compute dtype instead of logits."""
-    require_dense(cfg)
+    ``positions`` default to arange ((3,B,S) for M-RoPE); ``patch_embeds``
+    (B,P,D) take the first P positions (vlm). ``aux["moe_aux"]`` is the
+    MoE load-balancing loss summed over the layers (an f32 scalar tensor),
+    0.0 for other families. ``return_hidden=True`` yields the final-norm'd
+    hidden states (B,S,D) in the compute dtype instead of logits."""
     tokens = as_tokens(tokens, params.device)
-    B, S = tokens.shape
-    x = _embed(params, tokens, cfg)
-    if positions is None:
-        positions = default_positions(cfg, B, S, tokens.device)
-    cos_sin = _cos_sin(cfg, positions)
-    for lp, flag in zip(params.layers, _layer_flags(cfg)):
-        x, _ = _block_fwd(x, lp, flag, cfg, positions, cos_sin)
-    aux = {"moe_aux": 0.0}
+    x, auxs = None, []
+    for _, x, extra in _run(params, tokens, cfg, positions, patch_embeds):
+        if "aux" in extra:
+            auxs.append(extra["aux"])
+    aux = {"moe_aux": torch.stack(auxs).sum() if cfg.family == "moe" else 0.0}
     if return_hidden:
         return L.apply_norm(params.final_norm, x, cfg), aux
     return _logits(params, x, cfg), aux
 
 
 # ---------------------------------------------------------------------------
-# KV cache, prefill, decode
+# KV / state cache, prefill, decode
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, B: int, S_max: int, dtype=None, *,
                device=None) -> Dict[str, Any]:
-    require_dense(cfg)
+    require_decoder(cfg)
     dev = resolve_device(device)
     dtype = dtype or L.dt(cfg)
-    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    shape = (cfg.num_layers, B, S_max, KV, hd)
-    return {"pos": torch.zeros((B,), dtype=torch.int32, device=dev),
-            "k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    Lh = cfg.num_layers
+    c: Dict[str, Any] = {"pos": torch.zeros((B,), dtype=torch.int32, device=dev)}
+    if cfg.family in ATTN_FAMILIES:
+        shape = (Lh, B, S_max, cfg.num_kv_heads, cfg.resolved_head_dim)
+        c["k"] = torch.zeros(shape, dtype=dtype, device=dev)
+        c["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+    if cfg.family in SSM_FAMILIES:
+        c["state"] = torch.zeros((Lh, B, cfg.ssm_heads, cfg.ssm_state,
+                                  cfg.ssm_head_dim), dtype=torch.float32,
+                                 device=dev)
+        c["conv"] = torch.zeros((Lh, B, cfg.ssm_conv - 1,
+                                 cfg.d_inner + 2 * cfg.ssm_state),
+                                dtype=dtype, device=dev)
+    return c
 
 
 def prefill(params: LM, tokens, cfg: ModelConfig, S_max: int, *,
-            positions=None):
-    """Run the full prompt, build the decode cache. Returns (last_logits
-    (B,1,V), cache)."""
-    require_dense(cfg)
+            positions=None, patch_embeds=None):
+    """Run the full prompt, build the decode cache (the attention rows and
+    the SSM states of the same pass). Returns (last_logits (B,1,V),
+    cache)."""
     tokens = as_tokens(tokens, params.device)
     B, S = tokens.shape
-    x = _embed(params, tokens, cfg)
-    if positions is None:
-        positions = default_positions(cfg, B, S, tokens.device)
-    cos_sin = _cos_sin(cfg, positions)
     cache = init_cache(cfg, B, S_max, device=tokens.device)
     cache["pos"].fill_(S)
-    for i, (lp, flag) in enumerate(zip(params.layers, _layer_flags(cfg))):
-        x, (k, v) = _block_fwd(x, lp, flag, cfg, positions, cos_sin)
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
+    for i, x, extra in _run(params, tokens, cfg, positions, patch_embeds):
+        for name in ("k", "v"):
+            if name in extra:
+                cache[name][i, :, :S] = extra[name]
+        for name in ("state", "conv"):
+            if name in extra:
+                cache[name][i] = extra[name]
     return _logits(params, x[:, -1:, :], cfg), cache
 
 
 def decode_step(params: LM, cache, token, cfg: ModelConfig):
     """token (B,1) int32 -> (logits (B,1,V), cache). pos = cache['pos'];
-    the k/v buffers take the new rows in place, and the returned cache's
-    ``pos`` is ``pos + 1``."""
-    require_dense(cfg)
+    the buffers take the new rows and states in place, and the returned
+    cache's ``pos`` is ``pos + 1``. M-RoPE text tokens take the rotary
+    position ``pos - (num_patches - 1)``: the patch grid occupies one
+    temporal step."""
     token = as_tokens(token, params.device)
     pos = cache["pos"]
     x = _embed(params, token, cfg)
-    cos_sin = _cos_sin(cfg, pos[:, None])
+    rope_pos = pos - (cfg.num_patches - 1) \
+        if cfg.rope_type == "mrope" and cfg.num_patches else pos
+    cos_sin = L.decode_rope(cfg, rope_pos)
     for i, (lp, flag) in enumerate(zip(params.layers, _layer_flags(cfg))):
-        x, _ = _block_decode(x, lp, {"k": cache["k"][i], "v": cache["v"][i]},
-                             flag, pos, cfg, cos_sin=cos_sin)
+        x, new = _block_decode(
+            x, lp, {name: buf[i] for name, buf in cache.items() if name != "pos"},
+            flag, pos, cfg, cos_sin=cos_sin)
+        for name, value in new.items():
+            cache[name][i] = value
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
     return _logits(params, x, cfg), new_cache

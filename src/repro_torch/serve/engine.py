@@ -1,6 +1,7 @@
 """Continuous-batching LM serving engine (port of ``repro.serve.engine``).
 
-A slot scheduler over a fixed B×S_max KV cache ("slots"): requests are
+A slot scheduler over a fixed B×S_max cache ("slots": the attention rows
+and, for the ssm and hybrid families, the SSM states): requests are
 admitted into free slots, every step decodes *all* slots in one
 ``decode_step``, and a finished request (EOS, ``max_new`` tokens or a full
 cache) frees its slot at once — no head-of-line blocking on the longest
@@ -54,11 +55,18 @@ class Request:
 
 
 class Engine:
-    """Fixed-slot continuous-batching engine over one model (an ``LM`` on
-    its device)."""
+    """Fixed-slot continuous-batching engine over one decoder-only model
+    (an ``LM`` of any family but encdec, on its device). A vlm request's
+    prompt takes no patch embeddings: its first ``num_patches`` positions
+    are on the patch grid all the same, as in the reference."""
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 8,
                  s_max: int = 512):
+        if cfg.family == "encdec":
+            raise ValueError(
+                f"{cfg.name}: the Engine serves decoder-only families; an "
+                "encdec prompt needs its frames (run models.api's prefill "
+                "and decode_step)")
         self.params = params
         self.cfg = cfg
         self.B = slots
@@ -170,8 +178,9 @@ class Engine:
 
 
 def _splice(cache, rcache, slot: int, cfg: ModelConfig):
-    """Copy a request's cache (B=1) into engine-cache slot ``slot``, in
-    place."""
+    """Copy a request's cache (B=1: its ``k``/``v`` rows, its SSM
+    ``state`` and ``conv``, as the family has them) into engine-cache slot
+    ``slot``, in place."""
     for k, v in cache.items():
         if k != "pos":
             v[:, slot:slot + 1].copy_(rcache[k])   # layer-stacked: axis 1 is batch

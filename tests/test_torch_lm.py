@@ -1,4 +1,5 @@
-"""The port's dense LM against the JAX package, on the CPU.
+"""The port's dense LM against the JAX package, on the CPU (and every
+family's parameter count: ``test_init_matches_param_counts``).
 
 The JAX package's weights (``init_params(PRNGKey(0), cfg)`` of a smoke
 config) are carried into the port by ``interop.params_from_jax``, and the
@@ -218,21 +219,25 @@ def test_params_from_jax_is_exact_and_rejects_other_dtypes():
                         cfg, "cpu")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
 def test_init_matches_param_counts(arch):
     cfg = configs.get_config(arch, smoke=True)
     model = models.init_params(cfg, seed=0, device="cpu")
     n = sum(p.numel() for p in model.parameters())
+    assert n == cfg.param_counts()["total"] + models.extra_params(cfg)
     norms = sum(p.numel() for name, p in model.named_parameters()
-                if "ln" in name or "norm" in name)
-    assert n == cfg.param_counts()["total"] + norms
+                if "." in name and name.split(".")[-2].startswith(
+                    ("ln", "final_norm", "enc_norm", "dec_norm")))
+    n_norms = {"encdec": 2 * cfg.enc_layers + 3 * cfg.num_layers + 2,
+               "ssm": cfg.num_layers + 1}.get(cfg.family, 2 * cfg.num_layers + 1)
     assert norms == (0 if cfg.norm == "layernorm_np" else
-                     (2 * cfg.num_layers + 1) * cfg.d_model)
+                     n_norms * cfg.d_model * (2 if cfg.norm == "layernorm" else 1))
     jp = jmodels.init_params(jax.random.PRNGKey(0), jconfigs.get_config(
         arch, smoke=True))
     assert sorted(model.state_dict()) == sorted(
         params_from_jax(jax.tree.map(np.asarray, jp), cfg, "cpu").state_dict())
-    w = model.layers[0].attn.wq
+    first = model.dec_layers[0] if cfg.family == "encdec" else model.layers[0]
+    w = first.ssm.w_in if cfg.family == "ssm" else first.attn.wq
     assert abs(float(w.std()) * np.sqrt(cfg.d_model) - 1.0) < 0.1
 
 
@@ -244,28 +249,12 @@ def test_full_qwen2_count():
 
 def test_init_params_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = configs.get_config("qwen2_0_5b", smoke=True)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        models.init_params(cfg)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        models.init_cache(cfg, 1, 8)
-
-
-@pytest.mark.parametrize("arch", ["dbrx_132b", "mamba2_370m", "hymba_1_5b",
-                                  "whisper_large_v3", "qwen2_vl_2b"])
-def test_other_families_raise(arch):
-    cfg = configs.get_config(arch, smoke=True)
-    dense = lm.init_params(configs.get_config("qwen2_0_5b", smoke=True),
-                           device="cpu")
-    toks = {"tokens": np.zeros((1, 4), np.int32)}
-    calls = [lambda: models.init_params(cfg, device="cpu"),
-             lambda: models.forward(dense, toks, cfg),
-             lambda: models.prefill(dense, toks, cfg, 8),
-             lambda: models.decode_step(dense, {}, toks["tokens"][:, :1], cfg),
-             lambda: models.init_cache(cfg, 1, 8, device="cpu")]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match=cfg.family):
-            call()
+    for arch in ("qwen2_0_5b", "mamba2_370m", "whisper_large_v3"):
+        cfg = configs.get_config(arch, smoke=True)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            models.init_params(cfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            models.init_cache(cfg, 1, 8)
 
 
 def test_configs_are_the_jax_packages():

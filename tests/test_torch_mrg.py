@@ -163,6 +163,7 @@ def test_port_imports_no_jax():
             "repro_torch.kernels.fused_stream, repro_torch.core.coreset, "
             "repro_torch.models, repro_torch.models.layers, "
             "repro_torch.models.lm, repro_torch.models.api, "
+            "repro_torch.models.encdec, "
             "repro_torch.configs, repro_torch.data.pipeline, "
             "repro_torch.serve, repro_torch.serve.engine, "
             "repro_torch.serve.sampler; "
