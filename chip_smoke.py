@@ -3,8 +3,8 @@
 selection, the weighted and outlier objectives, the streaming sketch, EIM
 (paper §4), the online k-center service, the paper's machines as mesh
 shards and as separate processes, and the LM of every family (serving,
-and curating the dense model's embeddings by k-center) on one GPU, in
-memory and out of core.
+training, and curating the dense model's embeddings by k-center) on one
+GPU, in memory and out of core.
 
     python3 chip_smoke.py        # from the root of a checkout, one Hopper card
 
@@ -223,8 +223,43 @@ Phases, each of which raises on failure (nothing is caught):
               an admission, tokens/s, TTFT mean and p99, peak memory, a
               profile of 4 decode steps (kernels a step, idle share);
               whisper a B = 4 prefill and 32 greedy decode steps through
-              models.api, twice, no synchronising call in the loop. The
-              whole run's seconds are printed before the kernels line.
+              models.api, twice, no synchronising call in the loop.
+  16. LM training at full width (``repro_torch.optim``, ``.train``,
+              ``.checkpoint``, ``.launch.train``; random weights from a
+              seed; no kernel of the seven: the LM's products are cuBLAS):
+              16a the bf16 product into f32 (the head's and the experts'
+              cuBLAS call under an autograd Function) against the CPU's
+              upcast product, its gradients within one bf16 step and few
+              of them differing at all (a bf16-cotangent backward differs
+              at many); then one f32 train step (TF32 off) of qwen2-0.5b
+              (B = 2, S = 64) and mamba2-370m (B = 2, S = 256: SSD's chunk
+              of 256) at full width and 2 layers, and one bf16 step of
+              dbrx-132b at 1 layer (Adafactor, 2 microbatches, a bf16
+              accumulator), card against CPU on the same weights: the
+              loss, each gradient leaf against its largest |g|, the params
+              after the step wherever the gradient element (and, for
+              Adafactor, its row's and column's means of g^2) is resolved
+              (elsewhere left out, counted, bounded by 2 lr, their share
+              capped; sign flips counted); 16b train_loop,
+              8 steps of 4 x 512 tokens in bf16 as each config has it
+              (remat "full"; minicpm's WSD schedule from its config
+              module; dbrx Adafactor, 2
+              microbatches, a bf16 accumulator) for qwen2-0.5b,
+              minicpm-2b, qwen2-vl-2b, mamba2-370m, hymba-1.5b,
+              whisper-large-v3 at full depth and dbrx-132b at 1 of its 40
+              layers: every loss and grad norm finite; ms a step, tokens a
+              second, peak memory against the bytes reckoned from the
+              shapes, the loss curve; one more step of qwen2 and dbrx
+              profiled (kernels a step, idle share); the trained qwen2 serves 4
+              requests through the Engine, no cache tensor with a graph;
+              16c qwen2 at one batch under remat none, full, dots and
+              blocks of 8 (3 blocks): the gradients bitwise alike, each
+              setting's peak memory and ms; 16d qwen2 under train_loop with
+              a checkpoint every 2 steps and a fault at step 3: the restart
+              from step 2's checkpoint, run to step 6, bitwise an
+              uninterrupted run's state; the checkpoint's bytes and its
+              save and restore seconds. The whole run's seconds are
+              printed before the kernels line.
 
 Prints the card's name and power limit, one JSON line describing every
 kernel, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -256,6 +291,7 @@ from __future__ import annotations
 import functools
 import hashlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -4343,6 +4379,536 @@ def fam_encdec_loop(torch, cfg, model):
     lm_profile(torch, f"15d {cfg.name} decode_step B={B} (4 steps)", decode, 4)
 
 
+# Phase 16: LM training on the card (repro_torch.optim, .train, .checkpoint,
+# .launch.train; random weights from a seed). 16b trains one config a
+# family through train_loop, each as its config has it (remat "full";
+# minicpm's WSD schedule, as configs.schedule_for names it; dbrx Adafactor, 2 microbatches, a bf16
+# accumulator). dbrx keeps its widths at 1 of its 40 layers: ~9 GB of bf16
+# weights, as much again in gradients and in the accumulator, ~4.2 GB an
+# f32 temporary of its largest expert leaf; 40 layers are past one card.
+TRAIN_PARITY = (("qwen2_0_5b", 2, 2, 64), ("mamba2_370m", 2, 2, 256),
+                ("dbrx_132b", 1, 2, 64))  # 16a: arch, layers, B, S, in f32
+#                              mamba2: one SSD chunk of 256; dbrx: Adafactor,
+#                              2 microbatches, its bf16 accumulator (in bf16
+#                              its routing flips on rounding: near ties)
+TRAIN_PARITY_LR = 1e-3
+TRAIN_LOSS_RTOL = 1e-5       # 16a: the loss, relative
+TRAIN_GRAD_RTOL = 1e-3       # 16a: each gradient leaf within 1e-3 of its
+#                              largest |g|, plus one rounding step where the
+#                              gradient is bf16 (dbrx's accumulator); a leaf
+#                              below 1e-3 of the model's largest, such as the
+#                              key bias's, 0 in exact arithmetic, within 1e-6
+#                              of the model's largest
+TRAIN_ELEM_RTOL = 5e-4       # 16a: a gradient element is resolved where the
+#                              card's is within 5e-4 of the CPU's, relative
+#                              (both 0 included); AdamW's delta g / (|g| +
+#                              1e-8), or Adafactor's u, then differs by 5e-4
+#                              of itself at most
+TRAIN_PARAM_ATOL = 1e-6      # 16a: params after the step where the gradient
+#                              is resolved (lr x 5e-4 = 5e-7 apart at most),
+#                              plus TRAIN_MEAN_RTOL of the element's step
+#                              where the gradient is bf16; elsewhere AdamW's
+#                              first step turns rounding into up to ±lr: left
+#                              out, counted, each within 2 lr plus a rounding
+#                              step of the CPU's
+TRAIN_MEAN_RTOL = 2 ** -6    # 16a: Adafactor's row and column means of g^2
+#                              (its state vr, vc) agree within 2^-6 where an
+#                              element is resolved: they are taken in the
+#                              gradient's dtype, bf16 for dbrx, so one
+#                              rounding apart is up to 2^-7; twice that
+#                              keeps the state's own f32 rounding inside
+TRAIN_SKIP_SHARE = 1e-2      # 16a: the left-out share of the elements
+#                              (on the H100: 1.08e-3 qwen2, 3.72e-3 mamba2,
+#                              1.86e-3 dbrx)
+MATMUL_FLIP_SHARE = 5e-3     # 16a: of a bf16 gradient of the product, the
+#                              share of elements that may differ from the
+#                              CPU's at all: f32 sums in another order flip
+#                              a few bf16 roundings (on the H100: 0 to
+#                              5.67e-4), a backward that rounds the cotangent
+#                              to bf16 many (0.422-0.426): checked too
+TRAIN_FAMILIES = (("qwen2_0_5b", None), ("minicpm_2b", None),
+                  ("qwen2_vl_2b", None), ("mamba2_370m", None),
+                  ("hymba_1_5b", None), ("whisper_large_v3", None),
+                  ("dbrx_132b", 1))
+TRAIN_SHAPE = (4, 512)       # 16b-16d: B x S a step (qwen2-vl: 256 patch
+#                              positions, then text; whisper: + 1,500 frames)
+TRAIN_STEPS = 8
+TRAIN_LR = 3e-4              # the train CLI's default peak
+TRAIN_PROFILE = ("qwen2_0_5b", "dbrx_132b")   # 16b: one more step profiled
+TRAIN_SERVE = (4, 64, 16)    # 16b: requests, s_max, new tokens (trained qwen2)
+REMAT = (("none", dict(remat="none")), ("full", dict(remat="full")),
+         ("dots", dict(remat="dots")), ("block8", dict(remat="full", remat_block=8)))
+REMAT_RUNS = 3               # 16c: timed runs a setting (the median), after a warm-up
+RESTART = (6, 2, 3)          # 16d: steps, a checkpoint every 2, a fault at step 3
+
+
+def phase_train(torch):
+    print("== phase 16: LM training at full width: 16a a train step card "
+          "against CPU (qwen2-0.5b, mamba2-370m at 2 layers in f32; dbrx at 1 "
+          "layer in bf16) and the bf16 product's gradient, 16b bf16 train_loop for every family (dbrx at "
+          "1 of 40 layers) and serving the trained qwen2, 16c remat none / "
+          "full / dots / blocks of 8, 16d checkpoint, fault and restart "
+          "against an uninterrupted run", flush=True)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    train_matmul_grad(torch)
+    for arch, layers, B, S in TRAIN_PARITY:
+        train_parity(torch, arch, layers, B, S)
+    train_families(torch)
+    train_remat(torch)
+    train_restart(torch)
+    check("jax" not in sys.modules, "phase 16: jax was imported")
+    print(f"phase 16 seconds={time.perf_counter() - t0:.1f}", flush=True)
+
+
+def train_matmul_grad(torch):
+    """16a: the card's bf16 products into f32 (the head, the experts: cuBLAS
+    with out_dtype=f32, under an autograd Function) against the CPU path
+    (upcast, f32 product) on the same inputs: the f32 outputs within 1e-4
+    of the largest (the sums' order differs), each bf16 gradient element
+    within one bf16 step (2^-7 relative) of the CPU's plus that, and at
+    most MATMUL_FLIP_SHARE of them differing at all. The same share of a
+    backward that rounds the cotangent to bf16 and takes a bf16 product
+    must pass that limit, so that the check tells the two apart."""
+    from repro_torch.models import layers
+    gen = torch.Generator().manual_seed(16)
+    for shape_x, shape_w in (((4, 128, 896), (896, 4864)),
+                             ((4, 64, 256), (4, 256, 512))):
+        x = torch.randn(shape_x, generator=gen).to(torch.bfloat16)
+        w = (torch.randn(shape_w, generator=gen) / 16).to(torch.bfloat16)
+        r = torch.randn(shape_x[:-1] + shape_w[-1:], generator=gen)
+        got, want = [], []
+        for dev, out in (("cuda", got), ("cpu", want)):
+            xd = x.to(dev).requires_grad_(True)
+            wd = w.to(dev).requires_grad_(True)
+            y = layers.matmul(xd, wd)
+            gx, gw = torch.autograd.grad((y * r.to(dev)).sum(), (xd, wd))
+            out.extend(t.detach().cpu().float() for t in (y, gx, gw))
+            check(y.dtype == torch.float32 and gx.dtype == gw.dtype == torch.bfloat16,
+                  f"16a matmul {shape_x} x {shape_w}: dtypes {y.dtype} {gx.dtype} "
+                  f"{gw.dtype}")
+        rb, xc, wc = r.cuda().bfloat16(), x.cuda(), w.cuda()
+        if w.dim() == 3:
+            low = (torch.bmm(rb, wc.mT), torch.bmm(xc.mT, rb))
+        else:
+            low = (rb @ wc.T, xc.reshape(-1, x.shape[-1]).T @ rb.reshape(-1, w.shape[-1]))
+        low = [None] + [t.float().cpu() for t in low]
+        errs = []
+        for name, a, b, step, lo in zip(("out", "grad_x", "grad_w"), got, want,
+                                        (0.0, 2 ** -7, 2 ** -7), low):
+            top = b.abs().max().item()
+            err = ((a - b).abs() - step * b.abs()).max().item() / top
+            check(err <= 1e-4, f"16a matmul {shape_x} x {shape_w}: {name} "
+                  f"{err} of the largest from the CPU's (tolerance 1e-4)")
+            errs.append(f"{name}={(a - b).abs().max().item() / top:.3g}")
+            if lo is None:
+                continue
+            share = (a != b).float().mean().item()
+            share_low = (lo != b).float().mean().item()
+            check(share <= MATMUL_FLIP_SHARE, f"16a matmul {shape_x} x {shape_w}: "
+                  f"{name} differs from the CPU's at {share} of its elements "
+                  f"(limit {MATMUL_FLIP_SHARE})")
+            check(share_low > MATMUL_FLIP_SHARE, f"16a matmul {shape_x} x {shape_w}: "
+                  f"a bf16-cotangent {name} differs at only {share_low} of its "
+                  f"elements: the limit {MATMUL_FLIP_SHARE} cannot tell it apart")
+            errs.append(f"{name}_differing={share:.3g} bf16_cotangent_{name}_"
+                        f"differing={share_low:.3g}")
+        print(f"16a bf16 product into f32 {shape_x} x {shape_w} (cuBLAS out_dtype"
+              f"=f32, autograd Function) against the CPU's upcast product: ok "
+              f"max_abs_err/largest {' '.join(errs)} (out within 1e-4 of the "
+              f"largest; grads within one bf16 step of each element plus that, "
+              f"at most {MATMUL_FLIP_SHARE} of them differing)", flush=True)
+
+
+def _leaf_on_card(torch, tensors: dict, key: str, names) -> "torch.Tensor":
+    """The JAX package's leaf ``key`` from per-layer tensors (by parameter
+    name), stacked where the leaf is, on the card in f32."""
+    from repro_torch.optim.optimizers import leaf_tensor
+    return leaf_tensor(key, [tensors[n].detach().to("cuda", torch.float32)
+                             for n in names])
+
+
+def train_parity(torch, arch, layers, B, S):
+    """16a: one make_train_step on the same f32 weights (``layers`` layers
+    at full width; TF32 off) and batch, on the card and on the CPU, with
+    the config's optimizer, microbatches and accumulator: the loss, every
+    gradient leaf, and the params after the step."""
+    from repro_torch import optim, train
+    from repro_torch.configs import get_config
+    from repro_torch.data import model_batch
+    from repro_torch.models import api
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import leaf_groups
+    cfg = get_config(arch).replace(num_layers=layers, param_dtype="float32",
+                                   compute_dtype="float32")
+    card = api.init_params(cfg, seed=1)
+    before = {n: p.detach().cpu() for n, p in card.named_parameters()}
+    cpu = LM(cfg, device="cpu")
+    cpu.load_state_dict(before)
+    batch = model_batch(cfg, B, S, seed=1)
+    runs = {}
+    for where, model in (("card", card), ("cpu", cpu)):
+        opt = optim.make_optimizer(cfg.optimizer, optim.make_schedule(
+            "constant", peak=TRAIN_PARITY_LR))
+        seen = {}
+
+        def update(grads, state, m, opt=opt, seen=seen):
+            seen.update(grads)
+            return opt.update(grads, state, m)
+        step = train.make_train_step(cfg, optim.Optimizer(opt.init, update))
+        model.requires_grad_(True)
+        t0 = time.perf_counter()
+        with MoESpy(torch) as spy:
+            new, metrics = step({"params": model, "opt": opt.init(model), "step": 0},
+                                batch)
+        runs[where] = (float(metrics["loss"]), seen, time.perf_counter() - t0,
+                       dict(model.named_parameters()), new["opt"], spy.drops())
+    (loss, g_card, card_s, p_card, s_card, drops), \
+        (want_loss, g_cpu, cpu_s, p_cpu, s_cpu, cpu_drops) = runs["card"], runs["cpu"]
+    rel = abs(loss - want_loss) / abs(want_loss)
+    check(rel <= TRAIN_LOSS_RTOL, f"16a {cfg.name}: loss {loss} against the "
+          f"CPU's {want_loss} (relative {rel})")
+    top = max(g.detach().abs().max().item() for g in g_cpu.values())
+    worst, moved, leaves, left, off, flips, total = 0.0, 0.0, 0, 0, 0, 0, 0
+    with torch.no_grad():
+        for key, names in leaf_groups(g_cpu).items():
+            gdt, pdt = g_cpu[names[0]].dtype, p_cpu[names[0]].dtype
+            gc, gp = (_leaf_on_card(torch, t, key, names) for t in (g_card, g_cpu))
+            lmax = gp.abs().max().item()
+            scale = max(lmax, TRAIN_GRAD_RTOL * top)
+            gtol = TRAIN_GRAD_RTOL + (torch.finfo(gdt).eps if gdt != torch.float32
+                                      else 0.0)
+            err = (gc - gp).abs().max().item()
+            check(err <= gtol * scale, f"16a {cfg.name}: gradient {key} {err} "
+                  f"from the CPU's (tolerance {gtol * scale})")
+            worst = max(worst, err / scale)
+            loose = (gc - gp).abs() > TRAIN_ELEM_RTOL * gp.abs()
+            flips += int(((torch.sign(gc) != torch.sign(gp)) & loose).sum())
+            del gc, gp
+            v = s_cpu.get("v", {}).get(key, {})
+            if "vr" in v:
+                # Adafactor's u at (i, j) reads row i's and column j's means
+                # of g^2: resolved where those agree too
+                ok = [(s_card["v"][key][n] - v[n].cuda()).abs()
+                      <= TRAIN_MEAN_RTOL * v[n].cuda() for n in ("vr", "vc")]
+                loose |= ~(ok[0][..., None] & ok[1][..., None, :])
+                del ok
+            pc, pp = (_leaf_on_card(torch, t, key, names) for t in (p_card, p_cpu))
+            d = (pc - pp).abs()
+            rounding = torch.finfo(pdt).eps * torch.maximum(pc.abs(), pp.abs())
+            del pc
+            bound = torch.full_like(d, TRAIN_PARAM_ATOL)
+            if gdt != torch.float32:
+                # Adafactor's row and column means of g^2, within
+                # TRAIN_MEAN_RTOL each, move u by that much at most (its
+                # rsqrt halves their sum)
+                step = (pp - _leaf_on_card(torch, before, key, names)).abs()
+                bound += TRAIN_MEAN_RTOL * step
+                part = torch.where(loose | (step == 0), 0.0,
+                                   (d - TRAIN_PARAM_ATOL) / step)
+                moved = max(moved, part.max().item())
+                del step, part
+            over = int(((d > bound) & ~loose).sum())
+            check(over == 0, f"16a {cfg.name}: param {key} from the CPU's past "
+                  f"its tolerance at {over} elements where the gradient is "
+                  f"resolved (the largest part of a step taken {moved})")
+            far = int(((d > 2 * TRAIN_PARITY_LR + rounding) & loose).sum())
+            check(far == 0, f"16a {cfg.name}: param {key}: {far} left-out "
+                  f"elements past 2 lr and a rounding step from the CPU's")
+            left += int(loose.sum())
+            off += int(((d > TRAIN_PARAM_ATOL) & loose).sum())
+            total += d.numel()
+            leaves += 1
+            del pp, d, rounding, bound, loose
+    check(left <= TRAIN_SKIP_SHARE * total, f"16a {cfg.name}: {left} of {total} "
+          f"param elements left out (limit {TRAIN_SKIP_SHARE} of them)")
+    print(f"16a {cfg.name} f32 {layers} layers B={B} S={S} {cfg.optimizer} "
+          f"microbatches={cfg.microbatches} accum={cfg.accum_dtype}: ok "
+          f"loss={loss:.6f} cpu_loss={want_loss:.6f} rel_err={rel:.3g} "
+          f"grad_leaves={leaves} max_err/leaf_max={worst:.3g} (tolerance "
+          f"{TRAIN_GRAD_RTOL}, plus 2^-7 where the gradient is bf16) params equal within {TRAIN_PARAM_ATOL} "
+          f"(and a bf16 gradient's {TRAIN_MEAN_RTOL:.3g} of the step: the largest "
+          f"part taken {moved:.3g}) where the gradient element is within "
+          f"{TRAIN_ELEM_RTOL} of the CPU's (and Adafactor's means of g^2 within "
+          f"{TRAIN_MEAN_RTOL:.3g}); "
+          f"left out {left} of {total} elements (share {left / total:.3g}, limit "
+          f"{TRAIN_SKIP_SHARE}), {off} of them off by more, {flips} sign flips "
+          f"moe_drops={drops} cpu_moe_drops={cpu_drops} "
+          f"card_s={card_s:.2f} cpu_s={cpu_s:.2f}", flush=True)
+    del card, cpu, before, runs, g_card, g_cpu, p_card, p_cpu, s_card, s_cpu
+    torch.cuda.empty_cache()
+
+
+def train_bytes(torch, cfg, B, S) -> dict:
+    """The device bytes a train step should take, reckoned from the
+    shapes before anything is built: weights; gradients (the param dtype);
+    the accumulator; the optimizer's state; the update's f32 temporaries
+    (~5 of the largest tensor it takes at a time: a layer's slice for
+    AdamW, a stacked leaf for Adafactor); one CE chunk's f32 logits (x3:
+    logits, softmax, their gradient); the layer inputs kept by remat."""
+    from repro_torch import optim
+    from repro_torch.checkpoint.manager import _walk
+    from repro_torch.models.encdec import EncDec
+    from repro_torch.models.layers import _DTYPES
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.optimizers import leaf_groups
+    meta = (EncDec if cfg.family == "encdec" else LM)(cfg, device="meta")
+    params = dict(meta.named_parameters())
+    weights = sum(p.numel() * p.element_size() for p in params.values())
+    n = sum(p.numel() for p in params.values())
+    state = optim.make_optimizer(cfg.optimizer, lambda s: 0.0).init(meta)
+    opt = sum(t.numel() * t.element_size() for _, t in _walk(state)
+              if isinstance(t, torch.Tensor))
+    if cfg.optimizer == "adamw":
+        largest = max(p.numel() for p in params.values())
+    else:
+        largest = max(sum(params[m].numel() for m in members)
+                      for members in leaf_groups(params).values())
+    acc = n * _DTYPES[cfg.accum_dtype].itemsize if cfg.microbatches > 1 else 0
+    b = B // max(cfg.microbatches, 1)
+    logits = 3 * b * min(512, S) * cfg.vocab_size * 4
+    layers = cfg.num_layers + (cfg.enc_layers if cfg.family == "encdec" else 0)
+    acts = layers * b * (S + (cfg.enc_seq if cfg.family == "encdec" else 0)) \
+        * cfg.d_model * 2
+    parts = dict(weights=weights, grads=weights, accumulator=acc, opt_state=opt,
+                 f32_temps=5 * largest * 4, ce_logits=logits, layer_inputs=acts)
+    parts["total"] = sum(parts.values())
+    return parts
+
+
+def train_families(torch):
+    """16b: train_loop at full width, one config a family, TRAIN_STEPS
+    steps of TRAIN_SHAPE each: every loss and grad norm finite; ms a step
+    (the median past the first), tokens a second, peak memory against the
+    reckoned bytes, the loss curve. TRAIN_PROFILE's configs profile one
+    more step; the trained qwen2 serves."""
+    from repro_torch.configs import get_config, schedule_for
+    from repro_torch.launch.train import train_loop
+    B, S = TRAIN_SHAPE
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    for arch, layers in TRAIN_FAMILIES:
+        cfg = get_config(arch)
+        if layers:
+            print(f"16b {cfg.name}: reduced num_layers {cfg.num_layers} -> "
+                  f"{layers} (every width as published)", flush=True)
+            cfg = cfg.replace(num_layers=layers)
+        reckon = train_bytes(torch, cfg, B, S)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            path = os.path.join(tmp, "metrics.jsonl")
+            t0 = time.perf_counter()
+            state, hist = train_loop(cfg, steps=TRAIN_STEPS, batch_size=B,
+                                     seq_len=S, lr=TRAIN_LR, seed=0,
+                                     schedule=schedule_for(arch),
+                                     log_every=TRAIN_STEPS, metrics_path=path)
+            wall = time.perf_counter() - t0
+            with open(path) as f:
+                recs = [json.loads(line) for line in f]
+        peak = torch.cuda.max_memory_allocated() - base
+        losses = [h["loss"] for h in hist]
+        norms = [r["grad_norm"] for r in recs]
+        check(len(hist) == TRAIN_STEPS == len(norms), f"16b {cfg.name}: "
+              f"{len(hist)} steps logged, {TRAIN_STEPS} run")
+        check(all(math.isfinite(v) for v in losses + norms),
+              f"16b {cfg.name}: a loss or grad norm is not finite: {losses} {norms}")
+        ms = statistics.median(h["dt"] for h in hist[1:]) * 1e3
+        lrs = [float(f"{r['lr']:.3g}") for r in recs]
+        print(f"16b {cfg.name} {cfg.family} {cfg.param_dtype} layers={cfg.num_layers}"
+              f" remat={cfg.remat} remat_block={cfg.remat_block} {cfg.optimizer} "
+              f"microbatches={cfg.microbatches} accum={cfg.accum_dtype} "
+              f"schedule={schedule_for(arch)} B={B} "
+              f"S={S}: ok ms_per_step={ms:.1f} first_step_ms="
+              f"{hist[0]['dt'] * 1e3:.1f} tokens_per_s={B * S / ms * 1e3:.0f} "
+              f"wall_s={wall:.1f} peak_bytes={peak} reckoned_bytes={reckon['total']} "
+              f"peak/reckoned={peak / reckon['total']:.3f} "
+              f"({' '.join(f'{k}={v}' for k, v in reckon.items() if k != 'total')}) "
+              f"loss={[round(v, 4) for v in losses]} grad_norm="
+              f"{[round(v, 3) for v in norms]} lr={lrs}",
+              flush=True)
+        if arch in TRAIN_PROFILE:
+            train_profile(torch, cfg, state)
+        if arch == "qwen2_0_5b":
+            train_serve(torch, cfg, state["params"])
+        del state
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def train_profile(torch, cfg, state):
+    """16b: one more train step of the trained state under the profiler:
+    kernels a step, device busy time and idle share, the largest
+    kernels."""
+    from repro_torch import optim, train
+    from repro_torch.data import model_batch
+    B, S = TRAIN_SHAPE
+    opt = optim.make_optimizer(cfg.optimizer, optim.make_schedule(
+        "constant", peak=TRAIN_LR))
+    step = train.make_train_step(cfg, opt)
+    batch = model_batch(cfg, B, S, seed=0, step=TRAIN_STEPS)
+    lm_profile(torch, f"16b {cfg.name} train step B={B} S={S}",
+               lambda: step(state, batch), 1)
+
+
+def train_serve(torch, cfg, model):
+    """16b: the trained qwen2 serves TRAIN_SERVE's requests through the
+    Engine: every request its tokens in the vocabulary, and no tensor of
+    the cache carries an autograd graph."""
+    from repro_torch.data import token_batch
+    from repro_torch.serve import Engine, Request
+    n, s_max, new = TRAIN_SERVE
+    eng = Engine(model, cfg, slots=n, s_max=s_max)
+    for i in range(n):
+        eng.submit(Request(uid=i, tokens=token_batch(cfg.vocab_size, 1, 8 + 5 * i,
+                                                     seed=5, step=i)["tokens"][0],
+                           max_new=new))
+    t0 = time.perf_counter()
+    done = eng.run()
+    wall = time.perf_counter() - t0
+    check(len(done) == n and all(len(r.out) == new and all(0 <= t < cfg.vocab_size
+                                                           for t in r.out)
+                                 for r in done),
+          f"16b {cfg.name} serving: a request without {new} tokens in the vocabulary")
+    graphs = [k for k, t in eng.cache.items() if t.grad_fn is not None or t.requires_grad]
+    check(not graphs, f"16b {cfg.name} serving: cache tensors {graphs} carry a graph")
+    print(f"16b {cfg.name} trained, served by Engine(slots={n}, s_max={s_max}): "
+          f"ok requests={n} tokens={n * new} wall_s={wall:.3f} cache tensors "
+          f"without grad_fn {sorted(eng.cache)} params require grad="
+          f"{all(p.requires_grad for p in model.parameters())}", flush=True)
+
+
+def train_remat(torch):
+    """16c: qwen2 full() in bf16, one batch: the loss and its gradients
+    under remat none, full, dots and blocks of 8 (3 blocks of 8 layers):
+    bitwise alike; peak memory and ms of the forward and backward (the
+    median of REMAT_RUNS runs, the last one's gradients compared)."""
+    from repro_torch import train
+    from repro_torch.configs import get_config
+    from repro_torch.data import model_batch
+    from repro_torch.models import api
+    from repro_torch.train.step import to_device
+    cfg0 = get_config("qwen2_0_5b")
+    B, S = TRAIN_SHAPE
+    model = api.init_params(cfg0, seed=2)
+    model.requires_grad_(True)
+    names, params = zip(*model.named_parameters())
+    batch = to_device(model_batch(cfg0, B, S, seed=2), model.device)
+    ref = None
+    for label, changes in REMAT:
+        cfg = cfg0.replace(**changes)
+        loss_fn = train.make_loss_fn(cfg)
+
+        def run():
+            loss, _ = loss_fn(model, batch)
+            return loss.detach(), torch.autograd.grad(loss, params)
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(REMAT_RUNS):
+            grads = None        # the last run's gradients are not held
+            t0 = time.perf_counter()
+            loss, grads = run()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated() - base
+        same = "reference"
+        if ref is None:
+            ref = (loss, grads)
+        else:
+            diff = {n: (g.float() - r.float()).abs().max().item()
+                    for n, g, r in zip(names, grads, ref[1]) if not torch.equal(g, r)}
+            if diff or not torch.equal(loss, ref[0]):
+                worst = sorted(diff.items(), key=lambda kv: -kv[1])[:5]
+                print(f"16c remat={label}: gradients differ from remat=none: "
+                      f"{len(diff)} of {len(names)} tensors, largest {worst}; loss "
+                      f"{loss.item()} against {ref[0].item()}", flush=True)
+            check(not diff and torch.equal(loss, ref[0]), f"16c remat={label}: "
+                  "the gradients are not bitwise those without remat")
+            same = "bitwise remat=none's"
+        print(f"16c {cfg.name} {cfg.param_dtype} B={B} S={S} remat={cfg.remat} remat_block="
+              f"{cfg.remat_block}: ok loss={loss.item():.6f} gradients {same} "
+              f"forward+backward_ms={ms:.1f} (runs {[round(t, 1) for t in times]}) "
+              f"peak_bytes={peak}", flush=True)
+        del grads
+    del model, ref
+    torch.cuda.empty_cache()
+
+
+def train_restart(torch):
+    """16d: qwen2 full() bf16 under train_loop, a checkpoint every 2 steps
+    and a fault raised at step 3: the loop restores step 2's checkpoint and
+    runs to step 6; its state against an uninterrupted run's, bitwise.
+    Then the checkpoint's bytes and its save and restore seconds."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import RestartPolicy, train_loop
+    from repro_torch.checkpoint.manager import _walk
+    cfg = get_config("qwen2_0_5b")
+    steps, every, fault_at = RESTART
+    B, S = TRAIN_SHAPE
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    armed = [True]
+
+    def fault(step):
+        if step == fault_at and armed[0]:
+            armed[0] = False
+            raise RuntimeError("injected device failure")
+    kw = dict(steps=steps, batch_size=B, seq_len=S, lr=TRAIN_LR, seed=0,
+              log_every=steps)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        t0 = time.perf_counter()
+        state, hist = train_loop(cfg, ckpt_dir=tmp, ckpt_every=every,
+                                 resume="auto", fault_hook=fault,
+                                 policy=RestartPolicy(max_restarts=1, backoff_s=0.0),
+                                 **kw)
+        faulted_s = time.perf_counter() - t0
+        seen = [h["step"] for h in hist]
+        check(not armed[0] and seen == [0, 1, 2, 2, 3, 4, 5],
+              f"16d: steps run {seen}, expected 0 1 2, the restart at 2, 3 4 5")
+        t0 = time.perf_counter()
+        clean, clean_hist = train_loop(cfg, **kw)
+        clean_s = time.perf_counter() - t0
+        a, b = dict(_walk(state)), dict(_walk(clean))
+        check(list(a) == list(b), "16d: the two states differ in structure")
+        diff = {n: (a[n].float() - b[n].float()).abs().max().item()
+                for n in a if isinstance(a[n], torch.Tensor) and not torch.equal(a[n], b[n])}
+        scalars = [n for n in a if not isinstance(a[n], torch.Tensor) and a[n] != b[n]]
+        losses = [h["loss"] for h in hist[-3:]] == [h["loss"] for h in clean_hist[-3:]]
+        if diff or scalars or not losses:
+            print(f"16d: the restarted state differs from the uninterrupted run's: "
+                  f"{sorted(diff.items(), key=lambda kv: -kv[1])[:5]} {scalars} "
+                  f"losses {[h['loss'] for h in hist]} {[h['loss'] for h in clean_hist]}",
+                  flush=True)
+        check(not diff and not scalars and losses, "16d: the restart does not "
+              "reproduce the uninterrupted run bitwise")
+        t0 = time.perf_counter()
+        path = save_checkpoint(tmp, 100, clean, keep=1)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restore_checkpoint(tmp, state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(all(torch.equal(x, dict(_walk(clean))[n]) for n, x in _walk(state)
+                  if isinstance(x, torch.Tensor)), "16d: a restored state is not "
+              "the saved one")
+    print(f"16d {cfg.name} {cfg.param_dtype} B={B} S={S}: ok {steps} steps, a checkpoint every "
+          f"{every}, a fault at step {fault_at}, restored from step 2: state "
+          f"bitwise the uninterrupted run's ({len(a)} tensors and scalars), losses "
+          f"{[round(h['loss'], 4) for h in hist]} faulted_run_s={faulted_s:.1f} "
+          f"clean_run_s={clean_s:.1f} checkpoint_bytes={nbytes} save_s={save_s:.2f}"
+          f" restore_s={restore_s:.2f}", flush=True)
+
+
 def digest(*tensors) -> str:
     """SHA-1 of the tensors' bytes, in order: equal digests, bitwise equal
     results."""
@@ -4607,6 +5173,7 @@ def main() -> int:
     cluster_totals = phase_cluster(torch, P, counters)
     lm_totals = phase_lm(torch, engine, counters, results)
     phase_families(torch)
+    phase_train(torch)
 
     # times at each path's first shape on float inputs — in memory: GON step
     # m=50, per=20000, d=2; assign n=1e6, k=25, d=2 (paper Fig. 4); streamed:

@@ -6,5 +6,6 @@ from .common import (  # noqa: F401
     ShapeSpec,
     get_config,
     live_cells,
+    schedule_for,
     shape_applicable,
 )

@@ -68,6 +68,14 @@ def get_config(arch: str, *, smoke: bool = False) -> ModelConfig:
     return mod.smoke() if smoke else mod.full()
 
 
+def schedule_for(arch: str) -> str:
+    """The learning-rate schedule ``arch`` trains with (a name of
+    ``repro_torch.optim.SCHEDULES``): its module's ``SCHEDULE``, else
+    cosine."""
+    mod = importlib.import_module(f"repro_torch.configs.{arch}")
+    return getattr(mod, "SCHEDULE", "cosine")
+
+
 def live_cells():
     """All (arch, shape) dry-run cells after documented skips."""
     return [(a, s) for a in ARCH_IDS for s in SHAPES if shape_applicable(a, s)]

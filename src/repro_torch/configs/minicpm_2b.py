@@ -5,6 +5,8 @@ import math
 
 from repro_torch.models.config import ModelConfig
 
+SCHEDULE = "wsd"    # warmup-stable-decay, the paper's schedule
+
 _L = 40
 _D = 2304
 

@@ -2,8 +2,9 @@
 
 What crosses over is state — points, masks, running ``min_d2``, a round-1
 center union and its ``valid`` mask, cluster weights, a streaming sketch —
-and the LM's weights (``params_from_jax``). Both directions go through
-numpy, so neither package imports the other.
+the LM's weights (``params_from_jax``) and its train state
+(``train_state_from_jax``). Both directions go through numpy, so neither
+package imports the other.
 """
 from __future__ import annotations
 
@@ -70,6 +71,21 @@ def _exact_tensor(name: str, a) -> torch.Tensor:
 STACKED = ("layers", "enc_layers", "dec_layers")   # leading L axis in JAX
 
 
+def _flatten(tree: dict) -> dict:
+    """A nested dict's leaves by path tuple, in jax's flatten order (each
+    dict's keys sorted)."""
+    flat = {}
+
+    def walk(path, node):
+        if isinstance(node, dict):
+            for key in sorted(node):
+                walk(path + (key,), node[key])
+        else:
+            flat[path] = node
+    walk((), tree)
+    return flat
+
+
 def params_from_jax(params: dict, cfg, device):
     """The JAX package's model param pytree, read out as numpy (e.g.
     ``jax.tree.map(np.asarray, params)``), as the port's model on
@@ -84,17 +100,8 @@ def params_from_jax(params: dict, cfg, device):
     from repro_torch.device import resolve_device
     from repro_torch.models.encdec import EncDec
     from repro_torch.models.lm import LM
-    flat = {}
-
-    def walk(path, node):
-        if isinstance(node, dict):
-            for key, child in node.items():
-                walk(path + (key,), child)
-        else:
-            flat[path] = node
-    walk((), params)
     arrays = {}
-    for path, a in flat.items():
+    for path, a in _flatten(params).items():
         if path[0] in STACKED:
             for i in range(np.shape(a)[0]):
                 arrays[".".join((path[0], str(i)) + path[1:])] = np.asarray(a)[i]
@@ -114,3 +121,35 @@ def params_from_jax(params: dict, cfg, device):
                                  f"holds {own[name].dtype} {tuple(own[name].shape)}")
             own[name].copy_(t)
     return model
+
+
+def train_state_from_jax(state: dict, cfg, device):
+    """The JAX package's train state (``init_train_state`` and its train
+    steps), read out as numpy, as the port's on ``device``: the params
+    through ``params_from_jax`` (switched to require grad), the optimizer's
+    state onto the port's leaf-keyed state (AdamW's ``mu``/``nu`` trees;
+    Adafactor's ``v`` list, aligned with the flattened param leaves), and
+    the steps as ints. The moments keep their stacked (L, ...) shapes and
+    their float32."""
+    from repro_torch.device import resolve_device
+    dev = resolve_device(device)
+    model = params_from_jax(state["params"], cfg, dev)
+    model.requires_grad_(True)
+    leaves = [".".join(path) for path in _flatten(state["params"])]
+
+    def tensors(tree):
+        if isinstance(tree, dict):
+            return {k: tensors(v) for k, v in tree.items()}
+        return _exact_tensor("opt", tree).to(dev)
+    jopt = state["opt"]
+    opt = {"step": int(np.asarray(jopt["step"]))}
+    if "mu" in jopt:
+        for name in ("mu", "nu"):
+            opt[name] = {".".join(path): tensors(a)
+                         for path, a in _flatten(jopt[name]).items()}
+    else:
+        if len(jopt["v"]) != len(leaves):
+            raise ValueError(f"{len(jopt['v'])} Adafactor states for "
+                             f"{len(leaves)} param leaves")
+        opt["v"] = {key: tensors(v) for key, v in zip(leaves, jopt["v"])}
+    return {"params": model, "opt": opt, "step": int(np.asarray(state["step"]))}

@@ -19,6 +19,7 @@ from .api import (  # noqa: F401
     init_cache,
     init_params,
     prefill,
+    train_forward,
 )
 from .config import ModelConfig  # noqa: F401
 from .encdec import EncDec  # noqa: F401

@@ -4,6 +4,7 @@ One uniform surface for the serving code:
 
   init_params(cfg, seed=, device=)   -> the model (an ``nn.Module``)
   forward(params, batch, cfg)        -> (logits, aux)
+  train_forward(params, batch, cfg)  -> the same, recording the graph
   prefill(params, batch, cfg, S_max) -> (last_logits, cache)
   decode_step(params, cache, token, cfg)
   init_cache(cfg, B, S_max, device=)
@@ -13,8 +14,11 @@ One uniform surface for the serving code:
 encdec; ``patch_embeds`` (B,P,D) for vlm (optional: without them the
 first P positions are still on the patch grid of ``build_mrope_positions``).
 Each a numpy array or a tensor. Modality frontends are stubs: the model
-takes precomputed embeddings. Everything runs under
-``torch.inference_mode()``: training is not ported yet.
+takes precomputed embeddings. The serving surface (``forward``,
+``prefill``, ``decode_step``, ``init_cache``) runs under
+``torch.inference_mode()``: it records no graph, and its tensors carry
+none. The trainer's loss goes through ``train_forward``, the same
+forward where autograd records, with the config's remat.
 """
 from __future__ import annotations
 
@@ -74,15 +78,20 @@ def _vlm_kw(params, batch, cfg: ModelConfig) -> Dict[str, Any]:
                 patch_embeds=batch.get("patch_embeds"))
 
 
-@torch.inference_mode()
-def forward(params, batch: Dict[str, Any], cfg: ModelConfig,
-            *, return_hidden: bool = False):
+def train_forward(params, batch: Dict[str, Any], cfg: ModelConfig,
+                  *, return_hidden: bool = False):
     if cfg.family == "encdec":
         return encdec.forward(params, batch["frames"], batch["tokens"], cfg,
                               return_hidden=return_hidden)
     kw = _vlm_kw(params, batch, cfg) if cfg.family == "vlm" else {}
     return lm.forward(params, batch["tokens"], cfg,
                       return_hidden=return_hidden, **kw)
+
+
+@torch.inference_mode()
+def forward(params, batch: Dict[str, Any], cfg: ModelConfig,
+            *, return_hidden: bool = False):
+    return train_forward(params, batch, cfg, return_hidden=return_hidden)
 
 
 def head_weights(params, cfg: ModelConfig):

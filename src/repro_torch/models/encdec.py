@@ -16,6 +16,10 @@ states (no biases, every frame visible) + GELU MLP. The head is
 unstacked: ``enc_layers.{i}.attn.wq`` is
 ``params["enc_layers"]["attn"]["wq"][i]`` there.
 
+Where autograd records, ``remat="full"`` checkpoints each encoder and
+decoder layer, as the reference does (it has no other scheme for this
+family).
+
 The decode cache: ``pos`` (B,) int32, ``k``/``v`` (L, B, S_max, KV, hd)
 and the cross-attention's ``xk``/``xv`` (L, B, enc_seq, KV, hd), in the
 compute dtype.
@@ -32,7 +36,7 @@ from repro_torch.device import resolve_device
 
 from . import layers as L
 from .config import ModelConfig
-from .lm import as_embeds, as_tokens
+from .lm import as_embeds, as_tokens, remat
 
 
 class EncBlock(nn.Module):
@@ -97,16 +101,26 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> EncDec:
     return EncDec(cfg, gen)
 
 
+def _remat(body, cfg: ModelConfig):
+    """A layer checkpointed under ``remat="full"``, the one scheme the
+    reference has for this family."""
+    return remat(body, "full" if cfg.remat == "full" else "none")
+
+
 def encode(params: EncDec, frames, cfg: ModelConfig):
     """frames (B, Se, D) precomputed embeddings -> encoder states."""
     frames = as_embeds(frames, params.device)
     B, Se, D = frames.shape
     x = frames.to(L.dt(cfg)) + L.sinusoidal_embed(Se, D, frames.device).to(L.dt(cfg))
-    for lp in params.enc_layers:
+
+    def body(x, lp):
         h = L.apply_norm(lp.ln1, x, cfg)
         a, _ = L.attention_block(lp.attn, h, cfg, positions=None, bidir=True)
         x = x + a
-        x = x + L.apply_mlp(lp.mlp, L.apply_norm(lp.ln2, x, cfg), cfg)
+        return x + L.apply_mlp(lp.mlp, L.apply_norm(lp.ln2, x, cfg), cfg)
+    body = _remat(body, cfg)
+    for lp in params.enc_layers:
+        x = body(x, lp)
     return L.apply_norm(params.enc_norm, x, cfg)
 
 
@@ -122,30 +136,35 @@ def _head(params: EncDec, x, cfg: ModelConfig):
     return L.matmul(L.apply_norm(params.dec_norm, x, cfg), params.embed.T)
 
 
-def _decoder(params: EncDec, frames, tokens, cfg: ModelConfig):
-    """Encode, then run the decoder over ``tokens`` from position 0.
-    Yields (layer index, x after the layer, its self k/v, its cross k/v)."""
+def _dec_layer(x, lp: DecBlock, enc_out, cfg: ModelConfig):
+    """One decoder layer over the whole sequence. Returns (x', its self
+    k/v, its cross k/v)."""
+    h = L.apply_norm(lp.ln1, x, cfg)
+    a, kv = L.attention_block(lp.attn, h, cfg, positions=None)
+    x = x + a
+    xkv = L.encode_kv(lp.xattn, enc_out, cfg)
+    x = x + L.cross_attention_block(lp.xattn, L.apply_norm(lp.ln2, x, cfg),
+                                    xkv, cfg)
+    return x + L.apply_mlp(lp.mlp, L.apply_norm(lp.ln3, x, cfg), cfg), kv, xkv
+
+
+def _dec_inputs(params: EncDec, frames, tokens, cfg: ModelConfig):
+    """The encoder's states and the decoder's embedded tokens from
+    position 0."""
     enc_out = encode(params, frames, cfg)
-    B, S = tokens.shape
-    x = _dec_embed(params, tokens, cfg,
-                   torch.zeros((B,), dtype=torch.int32, device=tokens.device))
-    for i, lp in enumerate(params.dec_layers):
-        h = L.apply_norm(lp.ln1, x, cfg)
-        a, kv = L.attention_block(lp.attn, h, cfg, positions=None)
-        x = x + a
-        xkv = L.encode_kv(lp.xattn, enc_out, cfg)
-        x = x + L.cross_attention_block(lp.xattn, L.apply_norm(lp.ln2, x, cfg),
-                                        xkv, cfg)
-        x = x + L.apply_mlp(lp.mlp, L.apply_norm(lp.ln3, x, cfg), cfg)
-        yield i, x, kv, xkv
+    B = tokens.shape[0]
+    return enc_out, _dec_embed(params, tokens, cfg, torch.zeros(
+        (B,), dtype=torch.int32, device=tokens.device))
 
 
 def forward(params: EncDec, frames, tokens, cfg: ModelConfig, *,
             return_hidden: bool = False):
     """Teacher-forced forward. Returns (logits (B,S,V) f32 | hidden, {})."""
     tokens = as_tokens(tokens, params.device)
-    for _, x, _, _ in _decoder(params, frames, tokens, cfg):
-        pass
+    enc_out, x = _dec_inputs(params, frames, tokens, cfg)
+    body = _remat(lambda x, lp: _dec_layer(x, lp, enc_out, cfg)[0], cfg)
+    for lp in params.dec_layers:
+        x = body(x, lp)
     if return_hidden:
         return L.apply_norm(params.dec_norm, x, cfg), {}
     return _head(params, x, cfg), {}
@@ -170,7 +189,9 @@ def prefill(params: EncDec, frames, tokens, cfg: ModelConfig, S_max: int):
     B, S = tokens.shape
     cache = init_cache(cfg, B, S_max, device=tokens.device)
     cache["pos"].fill_(S)
-    for i, x, (k, v), (xk, xv) in _decoder(params, frames, tokens, cfg):
+    enc_out, x = _dec_inputs(params, frames, tokens, cfg)
+    for i, lp in enumerate(params.dec_layers):
+        x, (k, v), (xk, xv) = _dec_layer(x, lp, enc_out, cfg)
         cache["k"][i, :, :S] = k
         cache["v"][i, :, :S] = v
         cache["xk"][i] = xk

@@ -16,7 +16,10 @@ Numerics follow the reference op by op:
     card, go to one cuBLAS product with an f32 output. A bf16 product into
     bf16 accumulates in f32 within cuBLAS; with
     ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
-    off, its split-K sums do too.
+    off, its split-K sums do too. The card's product into f32 has no
+    autograd formula of its own (``torch.mm(..., out_dtype=f32)`` raises
+    in backward): ``_MatmulF32`` gives it one, as the CPU path's upcast
+    product has.
   * a bias add promotes to f32 (bf16 + f32), as jnp does; a residual
     ``x + rs * out`` stays in the activation's dtype.
   * norms, RoPE, attention scores and softmax run in f32; masked scores
@@ -80,7 +83,40 @@ def _dense_init(gen: torch.Generator | None, shape, scale: float, dtype,
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)   # the port serves only
+    # off while serving; the trainer switches it on (train.step)
+    return nn.Parameter(t, requires_grad=False)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """The card's low-precision product into f32: ``torch.mm`` (``x``
+    flattened to rows) or ``torch.bmm`` with ``out_dtype=f32``, whose
+    overload has no autograd formula. Backward: the f32 cotangent against
+    the other operand upcast, f32 products, each gradient rounded once to
+    its input's dtype, as JAX transposes ``dot_general(...,
+    preferred_element_type=f32)`` and as autograd differentiates the CPU
+    path's upcast product."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if w.dim() == 3:
+            return torch.bmm(x, w, out_dtype=F32)
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=F32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.matmul(g, w.to(F32).mT).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            if w.dim() == 3:
+                gw = torch.bmm(x.to(F32).mT, g)
+            else:
+                gw = x.reshape(-1, x.shape[-1]).to(F32).T @ g.reshape(-1, g.shape[-1])
+            gw = gw.to(w.dtype)
+        return gx, gw
 
 
 def _mm(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype):
@@ -91,10 +127,7 @@ def _mm(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype):
         return x @ w
     if (x.is_cuda and x.dtype == w.dtype and out_dtype == F32
             and x.dtype in (torch.bfloat16, torch.float16)):
-        if w.dim() == 3:
-            return torch.bmm(x, w, out_dtype=F32)
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=F32)
-        return out.reshape(*x.shape[:-1], w.shape[-1])
+        return _MatmulF32.apply(x, w)
     return (x.to(F32) @ w.to(F32)).to(out_dtype)
 
 
@@ -631,9 +664,12 @@ def ssd_chunked(xh, dtp, A, Bc, Cc, cfg: ModelConfig, h0=None):
     Bc/Cc (B,S,N)   shared-across-heads input/output projections
     h0  (B,nh,N,P)  initial state, optional
     Padding to a chunk multiple takes dt = 0 rows (decay 1, input 0: the
-    state does not move). ``exp`` of the cumulative sums above the diagonal
-    overflows to inf and is selected away (a product would make NaN); the
-    chunk states run through a sequential scan from ``h0``.
+    state does not move). The differences of the cumulative sums are masked
+    to -inf above the diagonal before the ``exp``: there they are positive,
+    and past ~88 (a chunk's sum of dt·|A|) ``exp`` overflows to inf. The
+    reference masks after the ``exp``; its forward is the same, but its
+    gradient multiplies 0 by inf there (NaN at the configs' chunk of 256).
+    The chunk states run through a sequential scan from ``h0``.
     Returns (y (B,S,nh,P) f32, h_last (B,nh,N,P) f32)."""
     B, S, nh, P = xh.shape
     N = Bc.shape[-1]
@@ -654,9 +690,10 @@ def ssd_chunked(xh, dtp, A, Bc, Cc, cfg: ModelConfig, h0=None):
 
     dA = dtb * A                                           # (B,nc,Q,nh) <= 0
     cums = torch.cumsum(dA, 2)
-    seg = torch.exp(cums[:, :, :, None, :] - cums[:, :, None, :, :])
     causal = torch.ones((Q, Q), dtype=torch.bool, device=xh.device).tril()
-    seg = torch.where(causal[None, None, :, :, None], seg, 0.0)   # (B,nc,Qq,Qs,nh)
+    seg = torch.exp(torch.where(causal[None, None, :, :, None],
+                                cums[:, :, :, None, :] - cums[:, :, None, :, :],
+                                -math.inf))                     # (B,nc,Qq,Qs,nh)
 
     # intra-chunk (quadratic within a chunk)
     G = torch.einsum("bcqn,bcsn->bcqs", Cb, Bb)

@@ -24,17 +24,22 @@ where it has an SSM. ``decode_step`` writes the new rows and states into
 the cache's buffers in place and returns the cache with ``pos + 1``.
 ``prefill`` takes the SSM states from the same pass over the layers (the
 reference runs the blocks a second time for them; the states are the
-same). Rematerialisation and sharding constraints only matter for training
-and meshes; they are not here.
+same). Where autograd records (training), ``forward`` rematerialises the
+layers as the config says (``run_layers``: ``remat`` and
+``remat_block``, the reference's ``_run_layers``); serving records
+nothing and checkpoints nothing. Sharding constraints wait for the port
+of ``sharding/``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.device import resolve_device, upload
 
@@ -224,6 +229,70 @@ def _block_decode(x, lp: Block, cache_l, is_global, pos, cfg: ModelConfig,
 
 
 # ---------------------------------------------------------------------------
+# Rematerialisation
+# ---------------------------------------------------------------------------
+
+# ``dots_with_no_batch_dims_saveable``: the products without batch
+# dimensions (the weight products, ``torch.mm``) are saved, everything
+# else (the attention's, the experts' and the SSD's batched products
+# included) is recomputed
+_DOTS = functools.partial(create_selective_checkpoint_contexts,
+                          [torch.ops.aten.mm.default, torch.ops.aten.mm.dtype])
+
+
+def remat(fn, policy: str):
+    """``fn`` checkpointed as ``policy`` says (``full``: nothing saved
+    inside; ``dots``: the weight products saved; else ``fn`` itself), where
+    autograd records: in inference or under ``no_grad`` there is nothing to
+    save, so ``fn`` runs as it is."""
+    if not torch.is_grad_enabled() or policy not in ("full", "dots"):
+        return fn
+    context = {"context_fn": _DOTS} if policy == "dots" else {}
+    return functools.partial(checkpoint, fn, use_reentrant=False, **context)
+
+
+def run_layers(body, x, layers, cfg: ModelConfig):
+    """Apply ``body(x, *layer) -> (x, aux)`` over ``layers`` with the
+    configured remat scheme (the reference's ``_run_layers``).
+
+    ``remat_block = k > 1`` (with at least 2k layers) checkpoints blocks of
+    k layers, each layer inside checkpointed again: only the block
+    boundaries are saved, and a block's recompute keeps only each layer's
+    input. The L mod k remaining layers, and every layer otherwise, are
+    checkpointed one by one as ``cfg.remat`` says. Returns (x, aux summed
+    as the reference sums it: within each block, then over the blocks and
+    the rest), or (x, None) where ``body`` returns no aux."""
+    k, Lh = cfg.remat_block, len(layers)
+    sums = []
+    if k > 1 and Lh >= 2 * k:
+        nb = Lh // k
+        inner = remat(body, "full")
+
+        def run_block(x, blk):
+            auxs = []
+            for layer in blk:
+                x, aux = inner(x, *layer)
+                auxs.append(aux)
+            return x, _total(auxs)
+
+        for b in range(nb):
+            x, aux = remat(run_block, "full")(x, layers[b * k:(b + 1) * k])
+            sums.append(aux)
+        layers = layers[nb * k:]
+    if layers:
+        step, auxs = remat(body, cfg.remat), []
+        for layer in layers:
+            x, aux = step(x, *layer)
+            auxs.append(aux)
+        sums.append(_total(auxs))
+    return x, _total(sums)
+
+
+def _total(auxs):
+    return None if not auxs or auxs[0] is None else torch.stack(auxs).sum()
+
+
+# ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
 
@@ -281,16 +350,14 @@ def default_positions(cfg: ModelConfig, B: int, S: int, device=None):
     return pos[None].expand(3, B, S) if cfg.rope_type == "mrope" else pos
 
 
-def _run(params: LM, tokens, cfg: ModelConfig, positions, patch_embeds):
-    """Embed, then yield (layer index, x after the layer, its extra)."""
+def _inputs(params: LM, tokens, cfg: ModelConfig, positions, patch_embeds):
+    """The embedded tokens, the positions (default ones where None) and
+    their rotary cos/sin."""
     B, S = tokens.shape
     x = _embed(params, tokens, cfg, patch_embeds)
     if positions is None:
         positions = default_positions(cfg, B, S, tokens.device)
-    cos_sin = L.rope_for(cfg, positions)
-    for i, (lp, flag) in enumerate(zip(params.layers, _layer_flags(cfg))):
-        x, extra = _block_fwd(x, lp, flag, cfg, positions, cos_sin)
-        yield i, x, extra
+    return x, positions, L.rope_for(cfg, positions)
 
 
 # ---------------------------------------------------------------------------
@@ -305,13 +372,18 @@ def forward(params: LM, tokens, cfg: ModelConfig, *, positions=None,
     (B,P,D) take the first P positions (vlm). ``aux["moe_aux"]`` is the
     MoE load-balancing loss summed over the layers (an f32 scalar tensor),
     0.0 for other families. ``return_hidden=True`` yields the final-norm'd
-    hidden states (B,S,D) in the compute dtype instead of logits."""
+    hidden states (B,S,D) in the compute dtype instead of logits. Where
+    autograd records, the layers are rematerialised as the config says
+    (``run_layers``)."""
     tokens = as_tokens(tokens, params.device)
-    x, auxs = None, []
-    for _, x, extra in _run(params, tokens, cfg, positions, patch_embeds):
-        if "aux" in extra:
-            auxs.append(extra["aux"])
-    aux = {"moe_aux": torch.stack(auxs).sum() if cfg.family == "moe" else 0.0}
+    x, positions, cos_sin = _inputs(params, tokens, cfg, positions, patch_embeds)
+
+    def body(x, lp, flag):
+        x, extra = _block_fwd(x, lp, flag, cfg, positions, cos_sin)
+        return x, extra.get("aux")
+    x, moe_aux = run_layers(body, x, list(zip(params.layers, _layer_flags(cfg))),
+                            cfg)
+    aux = {"moe_aux": moe_aux if cfg.family == "moe" else 0.0}
     if return_hidden:
         return L.apply_norm(params.final_norm, x, cfg), aux
     return _logits(params, x, cfg), aux
@@ -351,7 +423,9 @@ def prefill(params: LM, tokens, cfg: ModelConfig, S_max: int, *,
     B, S = tokens.shape
     cache = init_cache(cfg, B, S_max, device=tokens.device)
     cache["pos"].fill_(S)
-    for i, x, extra in _run(params, tokens, cfg, positions, patch_embeds):
+    x, positions, cos_sin = _inputs(params, tokens, cfg, positions, patch_embeds)
+    for i, (lp, flag) in enumerate(zip(params.layers, _layer_flags(cfg))):
+        x, extra = _block_fwd(x, lp, flag, cfg, positions, cos_sin)
         for name in ("k", "v"):
             if name in extra:
                 cache[name][i, :, :S] = extra[name]
