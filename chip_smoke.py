@@ -4909,6 +4909,546 @@ def train_restart(torch):
           f" restore_s={restore_s:.2f}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the LM's sharding (repro_torch.sharding)
+# ---------------------------------------------------------------------------
+
+SHARD_MESHES = (("pod16x16", (16, 16), ("data", "model")),
+                ("pod2x16x16", (2, 16, 16), ("pod", "data", "model")))
+SHARD_DRYRUN = (("qwen2_0_5b", "decode_32k", "single"),    # 17b: the JAX
+                ("mamba2_370m", "long_500k", "multi"))     # tests' two cells
+SHARD_ELASTIC = (4, 512, 2)  # 17c: B x S, steps (qwen2-0.5b at full width)
+SHARD_PARITY = (("qwen2_0_5b", 2, True), ("mamba2_370m", 2, True),
+                ("dbrx_132b", 2, False))  # 17d: arch, layers, train step too, in f32
+SHARD_GRIDS = ((2, 2), (1, 4))
+SHARD_PARITY_BS = (2, 8)     # 17d: B x S (dbrx: N·K = 64 slots, drop-free)
+SHARD_LOGIT_RTOL = 1e-3      # 17d: logits within 1e-3 of the largest |logit|
+#                              (14b's tolerance: sums in another order)
+SHARD_BF16 = (16, 512, 3)    # 17d: qwen2 at full depth in bf16: B x S, steps
+SHARD_CELLS = (("qwen2_0_5b", "train_4k", 8), ("qwen2_0_5b", "prefill_32k", 1),
+               ("qwen2_0_5b", "decode_32k", 1), ("mamba2_370m", "long_500k", 1))
+#                              17d: the SHAPES cells at (4, 1), microbatches
+#                              (train_4k takes 8 to fit: 8 rows a card each)
+SHARD_CELL_GRID = (4, 1)
+KIMI_SERVE = (4, 4, 64, 8)   # 17d: layers, B, prompt, decode steps (the
+#                              depth reckoned from the bytes: PERF.md)
+KIMI_TRAIN = (1, 8, 128)     # 17d: layers, B, S of the one train step
+SHARD_TIMEOUT = 1500.0       # 17d: the workers' deadline
+SHARD_WORKERS = os.path.abspath(__file__)   # the file 17's workers load
+
+
+def phase_sharding(torch):
+    print("== phase 17: the LM's sharding: 17a every config's placements "
+          "at pod16x16 and pod2x16x16, 17b the dry-run of two cells on a fake "
+          "process group, 17c train_loop on the elastic mesh of one card "
+          "against mesh=None, and two processes on the card over gloo",
+          flush=True)
+    t0 = time.perf_counter()
+    reckoned = shard_specs(torch)
+    shard_dryrun(reckoned)
+    shard_elastic(torch)
+    shard_gloo(torch)
+    check("jax" not in sys.modules, "phase 17: jax was imported")
+    print(f"phase 17 seconds={time.perf_counter() - t0:.1f}", flush=True)
+
+
+def shard_specs(torch) -> dict:
+    """17a: each config's full() train state placed by the rules on both
+    production meshes: every sharded dim divides its axes, and the bytes a
+    device holds of the parameters and of the optimizer's state. Returns
+    {(arch, mesh): param bytes}."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch import Mesh
+    from repro_torch.launch.specs import state_specs
+    from repro_torch.sharding import specs
+    from torch.distributed.tensor import Shard
+    out = {}
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        state = state_specs(cfg)
+        shapes = specs.leaf_shapes(state)
+        for name, shape, axes in SHARD_MESHES:
+            mesh = Mesh(shape, axes, device="cpu")
+            pl = specs.state_pspecs(state, mesh)
+            sharded = 0
+            for path, places in pl.items():
+                split = {}
+                for axis, p in zip(axes, places):
+                    if isinstance(p, Shard):
+                        split[p.dim] = split.get(p.dim, 1) * mesh.shape[axis]
+                for dim, n in split.items():
+                    check(shapes[path][dim] % n == 0, f"17a {arch} {name}: "
+                          f"{path} dim {dim} ({shapes[path][dim]}) over {n}")
+                sharded += bool(split)
+            pbytes = specs.placed_bytes(state["params"], specs.params_pspecs(
+                state["params"], mesh), mesh)
+            obytes = specs.placed_bytes({"opt": state["opt"]}, pl, mesh)
+            full_bytes = sum(p.numel() * p.element_size()
+                             for p in state["params"].parameters())
+            out[(arch, name)] = pbytes
+            print(f"17a {cfg.name} {name}: ok leaves={len(pl)} sharded={sharded} "
+                  f"param_bytes_per_device={pbytes} opt_bytes_per_device={obytes} "
+                  f"param_bytes_whole={full_bytes} "
+                  f"({full_bytes / max(pbytes, 1):.1f}x)", flush=True)
+    return out
+
+
+def shard_dryrun(reckoned: dict):
+    """17b: ``python -m repro_torch.launch.dryrun`` for SHARD_DRYRUN's cells,
+    both at once, each in a process of its own on a fake 512-rank group
+    (its fake tensors on the card's device type; nothing is allocated):
+    the record's parameter bytes against 17a's, its FLOPs, bytes,
+    collectives and roofline terms."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(here, "build", "dryrun")
+    env = dict(os.environ, PYTHONPATH=os.path.join(here, "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", which, "--out", out, "--force"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for arch, shape, which in SHARD_DRYRUN]
+    for (arch, shape, which), p in zip(SHARD_DRYRUN, procs):
+        log, _ = p.communicate(timeout=600)
+        check(p.returncode == 0, f"17b {arch} {shape}: dry-run failed:\n{log[-3000:]}")
+        mesh = "pod16x16" if which == "single" else "pod2x16x16"
+        with open(os.path.join(out, mesh, f"{arch}__{shape}.json")) as f:
+            rec = json.load(f)
+        mem, terms = rec["memory_analysis"], rec["roofline_terms_s"]
+        check(mem["param_bytes"] == reckoned[(arch, mesh)],
+              f"17b {arch} {shape} {mesh}: the record's parameter bytes "
+              f"{mem['param_bytes']} against 17a's {reckoned[(arch, mesh)]}")
+        check(rec["cost_per_device"]["flops"] > 0 and terms["memory_s"] > 0,
+              f"17b {arch} {shape}: {rec}")
+        print(f"17b {arch} {shape} {mesh}: ok chips={rec['chips']} "
+              f"device={rec['device']} run_s={rec['run_s']} "
+              f"{' '.join(f'{k}={v}' for k, v in mem.items())} "
+              f"flops_per_device={rec['cost_per_device']['flops']:.6g} "
+              f"bytes_per_device={rec['cost_per_device']['bytes']:.6g} "
+              f"collectives={rec['collectives_per_device']} "
+              f"terms_s={terms} dominant={rec['dominant']} "
+              f"useful_flops_fraction={rec['useful_flops_fraction']:.6g}",
+              flush=True)
+
+
+def shard_elastic(torch):
+    """17c: ``train_loop(mesh=make_elastic_mesh())`` on one card — a (1, 1)
+    mesh — for qwen2-0.5b at full width, bitwise the ``mesh=None`` run."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_elastic_mesh
+    from repro_torch.launch.train import train_loop
+    B, S, steps = SHARD_ELASTIC
+    cfg = get_config("qwen2_0_5b")
+    mesh = make_elastic_mesh()
+    check(tuple(mesh.shape.values()) == (1, 1), f"17c: elastic mesh {mesh.shape}")
+    runs = []
+    for m in (None, mesh):
+        t0 = time.perf_counter()
+        state, hist = train_loop(cfg, steps=steps, batch_size=B, seq_len=S,
+                                 mesh=m, log_every=steps)
+        runs.append((state, hist, time.perf_counter() - t0))
+    (a, ha, ta), (b, hb, tb) = runs
+    same = all(torch.equal(p, q) for (_, p), (_, q) in
+               zip(a["params"].named_parameters(), b["params"].named_parameters()))
+    check(same and [h["loss"] for h in ha] == [h["loss"] for h in hb],
+          "17c: the elastic mesh's run is not bitwise the mesh=None run")
+    print(f"17c qwen2-0.5b elastic mesh {dict(mesh.shape)} B={B} S={S} "
+          f"steps={steps}: ok bitwise mesh=None losses={[h['loss'] for h in hb]} "
+          f"wall_s={tb:.1f} (mesh=None {ta:.1f})", flush=True)
+    del a, b, runs
+    torch.cuda.empty_cache()
+
+
+def gloo_probe(ctx) -> dict:
+    """17c: whether gloo takes, on CUDA tensors, the collectives DTensor
+    and the MoE issue (all-gather, reduce-scatter, all-reduce): two
+    processes on the one card."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import make_process_mesh
+    dev = make_process_mesh((1, 2), ("data", "model")).device
+    x = torch.ones(4, device=dev)
+    dist.all_gather_into_tensor(torch.empty(8, device=dev), x)
+    dist.reduce_scatter_tensor(torch.empty(2, device=dev), x)
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    return {}
+
+
+def gloo_worker(ctx) -> dict:
+    """17c: qwen2-0.5b at 2 layers in f32 at (1, 2), two processes on the
+    one card over gloo, against this process's one-device run."""
+    import torch
+    return shard_parity(torch, (1, 2), "qwen2_0_5b", 2, True)
+
+
+def shard_gloo(torch):
+    """17c: two processes on the one card over gloo, where gloo takes the
+    collectives on CUDA tensors: the plain ones (gloo_probe), then
+    DTensor's (gloo_worker). A probe that fails, or workers killed by a
+    signal, mean gloo does not: a line says so. Anything else fails."""
+    from repro_torch.launch import ClusterError, run_scenario
+    torch.cuda.empty_cache()
+    stage = "the plain all-gather, reduce-scatter and all-reduce"
+    try:
+        run_scenario(f"{SHARD_WORKERS}:gloo_probe", 2, backend="gloo", timeout=120)
+        stage = "DTensor's collectives in the f32 parity case (the plain ones passed)"
+        v = run_scenario(f"{SHARD_WORKERS}:gloo_worker", 2, backend="gloo",
+                         timeout=300)
+    except ClusterError as e:
+        codes = [r.returncode for r in e.results]
+        if stage.startswith("DTensor") and not any(c is not None and c < 0
+                                                   for c in codes):
+            raise
+        print(f"17c two processes on one card: gloo does not take {stage} on "
+              f"CUDA tensors (the workers exit {codes}); the multi-process "
+              "cases run under --cluster nccl only (17d)", flush=True)
+        return
+    for r in v:
+        shard_parity_check(r)
+    print(f"17c two processes on one card over gloo (1, 2): ok {v[0]}", flush=True)
+
+
+def shard_parity(torch, grid, arch, layers, train):
+    """The sharded run of ``arch`` at ``layers`` in f32 on ``grid`` against
+    this process's one-device run on its own card: forward, prefill and a
+    decode step (logits relative to the largest |logit|), and where
+    ``train``, one train step's loss and gradients (each leaf relative to
+    its largest |g|, the optimizer's step taken too)."""
+    from repro_torch import models, optim
+    from repro_torch.configs import get_config
+    from repro_torch.data import model_batch
+    from repro_torch.launch import make_process_mesh
+    from repro_torch.sharding import use_mesh
+    from repro_torch.sharding.runtime import full
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import make_loss_fn
+    B, S = SHARD_PARITY_BS
+    cfg = get_config(arch).replace(num_layers=layers, param_dtype="float32",
+                                   compute_dtype="float32",
+                                   accum_dtype="float32")
+    batch = model_batch(cfg, B, S, seed=0, step=0)
+    mesh = make_process_mesh(grid, ("data", "model"))
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+    out = {"case": f"{cfg.name} {layers} layers {grid}"}
+    ref = models.init_params(cfg, seed=0)
+    logits, _ = models.forward(ref, batch, cfg)
+    pl, cache = models.prefill(ref, batch, cfg, S + 2)
+    tok = pl.argmax(-1).to(torch.int32).cpu().numpy()
+    dl, _ = models.decode_step(ref, cache, tok, cfg)
+    with use_mesh(mesh):
+        model = models.init_params(cfg, seed=0)
+        got, _ = models.forward(model, batch, cfg)
+        spl, scache = models.prefill(model, batch, cfg, S + 2)
+        sdl, _ = models.decode_step(model, scache, tok, cfg)
+        got, spl, sdl = got.full_tensor(), spl.full_tensor(), sdl.full_tensor()
+    out.update(forward=rel(got, logits), prefill=rel(spl, pl), decode=rel(sdl, dl))
+    del ref, cache, scache
+    if train:
+        loss_fn = make_loss_fn(cfg)
+
+        def grads(m):
+            m.requires_grad_(True)
+            names, ps = zip(*m.named_parameters())
+            loss, _ = loss_fn(m, batch)
+            return float(loss), dict(zip(names, torch.autograd.grad(
+                loss, ps, materialize_grads=True)))
+        ref = models.init_params(cfg, seed=0)
+        l1, g1 = grads(ref)
+        with use_mesh(mesh):
+            ls, gs = grads(model)
+            gs = {n: full(g) for n, g in gs.items()}
+        out["loss"] = abs(ls - l1) / abs(l1)
+        out["grad"] = max(float((gs[n] - g).abs().max() / g.abs().max().clamp_min(1e-30))
+                          for n, g in g1.items() if g.abs().max() > 1e-3 * max(
+                              float(h.abs().max()) for h in g1.values()))
+        opt = optim.make_optimizer(cfg.optimizer, optim.make_schedule(
+            "constant", peak=TRAIN_LR))
+        from repro_torch.train import init_train_state
+        with use_mesh(mesh):
+            state = init_train_state(cfg, opt, seed=0)
+            state, metrics = make_train_step(cfg, opt)(state, batch)
+            out["step_loss"] = float(metrics["loss"])
+        del state, ref, g1, gs
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_parity_check(r: dict):
+    check(max(r["forward"], r["prefill"], r["decode"]) <= SHARD_LOGIT_RTOL,
+          f"17d {r['case']}: logits {r}")
+    if "loss" in r:
+        check(r["loss"] <= TRAIN_LOSS_RTOL and r["grad"] <= TRAIN_GRAD_RTOL,
+              f"17d {r['case']}: loss or gradients {r}")
+        check(math.isfinite(r["step_loss"]), f"17d {r['case']}: step loss {r}")
+
+
+def _peak_reset(torch):
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def sharded_worker(ctx) -> dict:
+    """17d, run by every worker (a card each, NCCL), one part of it a run
+    (``ctx.args["part"]``), so that each part starts on empty cards:
+    ``parity`` (the SHARD_PARITY cases at SHARD_GRIDS, then qwen2-0.5b at
+    full depth in bf16), ``cells`` (SHARD_CELLS at SHARD_CELL_GRID),
+    ``kimi_serve`` and ``kimi_train`` (kimi-k2 at full width). Each case's
+    per-card peak device memory and ms."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    return {"parity": _shard_parity_part, "cells": _shard_cells_part,
+            "kimi_serve": _kimi_serve_part, "kimi_train": _kimi_train_part}[
+                ctx.args["part"]](torch)
+
+
+def _shard_parity_part(torch) -> dict:
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.data import model_batch
+    from repro_torch.launch import make_process_mesh
+    from repro_torch.sharding import use_mesh
+    from repro_torch.train import init_train_state, make_train_step
+    out = {"parity": []}
+    for arch, layers, train in SHARD_PARITY:
+        for grid in SHARD_GRIDS:
+            out["parity"].append(shard_parity(torch, grid, arch, layers, train))
+    # qwen2-0.5b at full depth in bf16 on (2, 2)
+    B, S, steps = SHARD_BF16
+    cfg = get_config("qwen2_0_5b")
+    mesh = make_process_mesh((2, 2), ("data", "model"))
+    base = _peak_reset(torch)
+    opt = optim.make_optimizer(cfg.optimizer, optim.make_schedule("constant",
+                                                                  peak=TRAIN_LR))
+    with use_mesh(mesh):
+        state = init_train_state(cfg, opt, seed=0)
+        step = make_train_step(cfg, opt)
+        ms, losses = [], []
+        for i in range(steps):
+            (state, m), t = _timed(torch, lambda: step(
+                state, model_batch(cfg, B, S, step=i)))
+            ms.append(t)
+            losses.append(float(m["loss"]))
+    out["bf16"] = {"grid": [2, 2], "B": B, "S": S, "ms": ms, "losses": losses,
+                   "peak": torch.cuda.max_memory_allocated() - base,
+                   "held": _held_bytes(state)}
+    return out
+
+
+def _shard_cells_part(torch) -> dict:
+    from repro_torch import models
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data import model_batch
+    from repro_torch.launch import make_process_mesh
+    from repro_torch.sharding import runtime, use_mesh
+    from repro_torch.sharding.specs import state_pspecs
+    from repro_torch.train import make_train_step
+    mesh = make_process_mesh(SHARD_CELL_GRID, ("data", "model"))
+    out = {}
+    for arch, cell, micro in SHARD_CELLS:
+        shape = SHAPES[cell]
+        cfg = get_config(arch)
+        Bg, Sg = shape.global_batch, shape.seq_len
+        base = _peak_reset(torch)
+        rec = {"B": Bg, "S": Sg, "microbatches": micro}
+        with use_mesh(mesh):
+            model = models.init_params(cfg, seed=0)
+            if shape.kind == "train":
+                model.requires_grad_(True)
+                ostate = opt_for(cfg).init(model)
+                ostate = runtime.place_tree(ostate, state_pspecs(
+                    {"opt": ostate}, mesh), mesh, prefix="opt/")
+                st = {"params": model, "opt": ostate, "step": 0}
+                stepf = make_train_step(cfg, opt_for(cfg), num_microbatches=micro)
+                batch = model_batch(cfg, Bg, Sg)
+                (st, m), rec["ms"] = _timed(torch, lambda: stepf(st, batch))
+                rec["loss"] = float(m["loss"])
+                del st
+            elif shape.kind == "prefill":
+                batch = {"tokens": np.zeros((Bg, Sg), np.int32)}
+                (lg, cache), rec["ms"] = _timed(torch, lambda: models.prefill(
+                    model, batch, cfg, Sg))
+                rec["finite"] = bool(torch.isfinite(lg.to_local()).all())
+                del lg, cache
+            else:
+                rows = runtime.dp_rows(Bg)
+                b = Bg if rows is None else rows[1] - rows[0]
+                with torch.inference_mode():
+                    cache = models.init_cache(cfg, b, Sg, device=mesh.device)
+                    cache["pos"].fill_(Sg - 1)
+                tok = np.zeros((Bg, 1), np.int32)
+                (lg, cache), rec["ms"] = _timed(torch, lambda: models.decode_step(
+                    model, cache, tok, cfg))
+                rec["finite"] = bool(torch.isfinite(lg.to_local()).all())
+                del lg, cache
+        rec["peak"] = torch.cuda.max_memory_allocated() - base
+        out[f"{arch} {cell}"] = rec
+        del model
+    return {"cells": out}
+
+
+def _kimi_serve_part(torch) -> dict:
+    """kimi-k2 at full width on (1, 4), at KIMI_SERVE's depth: prefill and
+    decode steps, each process's tokens the same."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.data import model_batch
+    from repro_torch.launch import make_process_mesh
+    from repro_torch.sharding import use_mesh
+    mesh = make_process_mesh((1, 4), ("data", "model"))
+    layers, B, P, steps = KIMI_SERVE
+    cfg = get_config("kimi_k2_1t_a32b").replace(num_layers=layers)
+    base = _peak_reset(torch)
+    with use_mesh(mesh):
+        (model, init_ms) = _timed(torch, lambda: models.init_params(cfg, seed=0))
+        batch = model_batch(cfg, B, P)
+        (lg, cache), pre_ms = _timed(torch, lambda: models.prefill(
+            model, batch, cfg, P + steps))
+        tok = lg.full_tensor().argmax(-1).to(torch.int32).cpu().numpy()
+        dec = []
+        for _ in range(steps):
+            (lg, cache), t = _timed(torch, lambda: models.decode_step(
+                model, cache, tok, cfg))
+            dec.append(t)
+            tok = lg.full_tensor().argmax(-1).to(torch.int32).cpu().numpy()
+        finite = bool(torch.isfinite(lg.to_local()).all())
+    return {"kimi_serve": {"layers": layers, "B": B, "prompt": P,
+                           "init_ms": init_ms, "prefill_ms": pre_ms,
+                           "decode_ms": dec, "finite": finite,
+                           "tokens": tok.reshape(-1).tolist(),
+                           "held": _held_bytes({"p": model}),
+                           "peak": torch.cuda.max_memory_allocated() - base}}
+
+
+def _kimi_train_part(torch) -> dict:
+    """kimi-k2 at full width on (1, 4): one train step at KIMI_TRAIN's
+    depth (its Adafactor, 2 microbatches, bf16 accumulator)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import model_batch
+    from repro_torch.launch import make_process_mesh
+    from repro_torch.sharding import use_mesh
+    from repro_torch.train import init_train_state, make_train_step
+    mesh = make_process_mesh((1, 4), ("data", "model"))
+    layers, B, S = KIMI_TRAIN
+    cfg = get_config("kimi_k2_1t_a32b").replace(num_layers=layers)
+    base = _peak_reset(torch)
+    opt = opt_for(cfg)
+    with use_mesh(mesh):
+        state = init_train_state(cfg, opt, seed=0)
+        (state, m), ms = _timed(torch, lambda: make_train_step(cfg, opt)(
+            state, model_batch(cfg, B, S)))
+    return {"kimi_train": {"layers": layers, "B": B, "S": S, "ms": ms,
+                           "loss": float(m["loss"]), "held": _held_bytes(state),
+                           "peak": torch.cuda.max_memory_allocated() - base}}
+
+
+def opt_for(cfg):
+    from repro_torch import optim
+    return optim.make_optimizer(cfg.optimizer, optim.make_schedule(
+        "constant", peak=TRAIN_LR))
+
+
+def _held_bytes(tree) -> int:
+    """Bytes this process holds of a tree's tensors (its shards)."""
+    import torch
+    from repro_torch.sharding.runtime import local
+    if isinstance(tree, torch.nn.Module):
+        return sum(local(p).numel() * p.element_size() for p in tree.parameters())
+    if isinstance(tree, dict):
+        return sum(_held_bytes(v) for v in tree.values())
+    if isinstance(tree, torch.Tensor):
+        t = local(tree)
+        return t.numel() * t.element_size()
+    return 0
+
+
+def phase_sharded_cluster(torch, backend: str):
+    """17d over ``backend`` (a card a worker): the dry-run of SHARD_CELLS
+    at SHARD_CELL_GRID first (its reckoned per-device peak, on a fake
+    group), then sharded_worker on four processes."""
+    print(f"== phase 17d: the LM sharded over 4 processes ({backend}, a card a "
+          "worker): (2, 2) and (1, 4) against one card in f32, qwen2-0.5b at "
+          "full depth in bf16, the SHAPES cells that fit at "
+          f"{SHARD_CELL_GRID}, kimi-k2 at full width", flush=True)
+    from repro_torch.launch import ClusterError, run_scenario
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(here, "build", "dryrun")
+    env = dict(os.environ, PYTHONPATH=os.path.join(here, "src"))
+    grid = "x".join(map(str, SHARD_CELL_GRID))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", cell, "--grid", grid, "--microbatches", str(micro),
+         "--out", out, "--force"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for arch, cell, micro in SHARD_CELLS]
+    reck = {}
+    for (arch, cell, _), p in zip(SHARD_CELLS, procs):
+        log, _ = p.communicate(timeout=900)
+        check(p.returncode == 0, f"17d dry-run {arch} {cell}: {log[-3000:]}")
+        with open(os.path.join(out, f"grid{grid}", f"{arch}__{cell}.json")) as f:
+            reck[f"{arch} {cell}"] = json.load(f)["memory_analysis"]
+    print(f"17d dry-run at {grid}: {reck}", flush=True)
+    # each part on fresh processes; the allocator's expandable segments keep
+    # kimi-k2's 22.5 GB f32 draws from fragmenting the cards
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+    def part(name):
+        for attempt in range(3):
+            try:
+                return run_scenario(f"{SHARD_WORKERS}:sharded_worker", 4,
+                                    args={"part": name}, backend=backend,
+                                    timeout=SHARD_TIMEOUT)
+            except ClusterError as e:   # a port of the last run's, not free yet
+                if "EADDRINUSE" not in str(e) or attempt == 2:
+                    raise
+                print(f"17d {name}: the rendezvous port was in use; again",
+                      flush=True)
+    v = part("parity")
+    for w in v:
+        for r in w["parity"]:
+            shard_parity_check(r)
+    for r in v[0]["parity"]:
+        print(f"17d parity {r['case']}: ok {r}", flush=True)
+    print(f"17d bf16: ok {v[0]['bf16']} peak_per_card={[w['bf16']['peak'] for w in v]}",
+          flush=True)
+    v = part("cells")
+    for name, rec in v[0]["cells"].items():
+        peaks = [w["cells"][name]["peak"] for w in v]
+        check(all(w["cells"][name].get("finite", True) for w in v)
+              and all(math.isfinite(w["cells"][name].get("loss", 0.0)) for w in v),
+              f"17d {name}: not finite {rec}")
+        print(f"17d cell {name} at {grid}: ok {rec} peak_per_card={peaks} "
+              f"reckoned_peak={reck[name]['peak_bytes']} "
+              f"reckoned_args={reck[name]['argument_size_in_bytes']}", flush=True)
+    v = part("kimi_serve")
+    check(all(w["kimi_serve"]["finite"] for w in v), "17d kimi: logits not finite")
+    check(all(w["kimi_serve"]["tokens"] == v[0]["kimi_serve"]["tokens"] for w in v),
+          "17d kimi: the processes decoded different tokens")
+    print(f"17d kimi_serve: ok {v[0]['kimi_serve']} "
+          f"peak_per_card={[w['kimi_serve']['peak'] for w in v]}", flush=True)
+    v = part("kimi_train")
+    check(all(math.isfinite(w["kimi_train"]["loss"]) for w in v),
+          "17d kimi: train loss not finite")
+    print(f"17d kimi_train: ok {v[0]['kimi_train']} "
+          f"peak_per_card={[w['kimi_train']['peak'] for w in v]}", flush=True)
+    print(f"phase 17d seconds={time.perf_counter() - t0:.1f}", flush=True)
+
+
 def digest(*tensors) -> str:
     """SHA-1 of the tensors' bytes, in order: equal digests, bitwise equal
     results."""
@@ -5174,6 +5714,7 @@ def main() -> int:
     lm_totals = phase_lm(torch, engine, counters, results)
     phase_families(torch)
     phase_train(torch)
+    phase_sharding(torch)
 
     # times at each path's first shape on float inputs — in memory: GON step
     # m=50, per=20000, d=2; assign n=1e6, k=25, d=2 (paper Fig. 4); streamed:
@@ -5263,6 +5804,7 @@ def cluster_main(backend: str) -> int:
     _build.build()
     totals = phase_cluster(torch, P, kernel_counters(), backend)
     print(json.dumps({"cluster": backend, "launches": totals}), flush=True)
+    phase_sharded_cluster(torch, backend)
     return 0
 
 

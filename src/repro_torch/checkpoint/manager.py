@@ -12,6 +12,12 @@
     name, so a change in the model's or the optimizer's structure fails
     loudly instead of loading silently into the wrong place.
 
+Sharded state (DTensors, ``repro_torch.sharding``) is saved logically:
+each leaf is gathered whole to the host (a collective: every process
+saves, process 0 writes the file). A restore places each leaf as its
+template's is placed, so the template built on a restart's mesh, larger
+or smaller, reshards the checkpoint onto it: the elastic restore.
+
 A tree is nested dicts and lists of tensors, numpy arrays, ints and
 floats; an ``nn.Module`` in it stands for its ``state_dict``. bfloat16
 tensors are stored through a 16-bit integer view with their dtype
@@ -50,7 +56,10 @@ def _walk(tree, path=""):
 def _host(leaf) -> Tuple[np.ndarray, str]:
     """A leaf as a numpy array and the dtype name it comes back as."""
     if isinstance(leaf, torch.Tensor):
+        from torch.distributed.tensor import DTensor
         t = leaf.detach()
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
         name = str(t.dtype).removeprefix("torch.")
         if t.dtype in _VIEWS:
             t = t.view(_VIEWS[t.dtype])
@@ -73,6 +82,10 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3):
         names.append(name)
         dtypes.append(dt)
     final = os.path.join(ckpt_dir, f"ckpt_{step:010d}.npz")
+    from repro_torch import compat
+    if compat.process_index() != 0:
+        _barrier()          # process 0 writes; the others wait for it
+        return final
     fd, tmp = tempfile.mkstemp(dir=ckpt_dir, suffix=".tmp")
     with os.fdopen(fd, "wb") as f:
         np.savez(f, __names__=np.array(json.dumps(names)),
@@ -85,7 +98,14 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3):
         f.write(os.path.basename(final))
     os.replace(tmp, os.path.join(ckpt_dir, "latest"))
     _prune(ckpt_dir, keep)
+    _barrier()
     return final
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
 
 
 def _prune(ckpt_dir: str, keep: int):
@@ -123,6 +143,13 @@ def _leaf(a: np.ndarray, dtype: str, like):
     want = getattr(torch, dtype)
     if want in _VIEWS:
         t = t.view(want)
+    from torch.distributed.tensor import DTensor
+    if isinstance(like, DTensor):     # this process's shard, as placed there
+        from repro_torch.sharding.runtime import shard_of
+        return DTensor.from_local(shard_of(t, like).to(like.device),
+                                  like.device_mesh, like.placements,
+                                  run_check=False, shape=t.shape,
+                                  stride=t.stride())
     return t.to(like.device)
 
 
@@ -131,9 +158,10 @@ def _fill(template, get, path=""):
     leaf)``; a module's parameters and buffers are copied into it in
     place."""
     if isinstance(template, nn.Module):
+        from repro_torch.sharding.runtime import local
         with torch.no_grad():
             for key, t in template.state_dict().items():
-                t.copy_(get(f"{path}[{key!r}]", t))
+                local(t).copy_(local(get(f"{path}[{key!r}]", t)))
         return template
     if isinstance(template, dict):
         return {key: _fill(child, get, f"{path}[{key!r}]")

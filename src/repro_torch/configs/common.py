@@ -5,9 +5,9 @@ Every architecture id maps to:
             drawn from a seed: no checkpoint is read)
   smoke() — a reduced same-family config for CPU smoke tests
 
-The port's model API runs every architecture (kimi-k2's full() only once
-the port of ``sharding/`` spreads its experts over cards: one card holds
-neither its weights nor one layer's experts).
+The port's model API runs every architecture; kimi-k2's full() only
+sharded over cards (``repro_torch.sharding``): one card holds neither its
+weights nor, with its training state, one layer's experts.
 
 Shapes (assigned to every LM arch):
   train_4k    : seq 4096,   global batch 256   -> train_step

@@ -385,7 +385,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--coordinator", default=None,
                     help="(worker) process 0's host:port")
     ap.add_argument("--process-id", type=int, default=0)
-    ap.add_argument("--args-json", default=None)
+    ap.add_argument("--args-json", default=None,
+                    help="the scenario's arguments (ctx.args), as JSON")
     ap.add_argument("--timeout", type=float, default=180.0)
     ns = ap.parse_args(argv)
     if ns.worker:
@@ -397,7 +398,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     target = ns.target or "repro_torch.launch.cluster:demo_mrg"
     try:
         verdicts = run_scenario(target, ns.num_processes, timeout=ns.timeout,
-                                backend=ns.backend, device=ns.device)
+                                backend=ns.backend, device=ns.device,
+                                args=json.loads(ns.args_json or "null"))
     except ClusterError as e:
         print(str(e), file=sys.stderr)
         return 1

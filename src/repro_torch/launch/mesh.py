@@ -25,11 +25,22 @@ collectives, kept here as small functions:
 Their operands are values held per position, stacked: a leading ``grid``
 of one dim per shard axis (size 1 along an axis whose members already hold
 the same value, so each distinct value is computed once), then the value.
+
+The LM's meshes (``make_production_mesh``, ``make_elastic_mesh``,
+``make_process_mesh``) are the same ``Mesh`` with one process a position:
+``owners`` is the process-group rank at each position, row-major. Such a
+mesh carries a ``torch.distributed`` ``DeviceMesh`` over those ranks with
+the same axis names (``device_mesh``, built on first use), on which
+``repro_torch.sharding`` places DTensors; ``use_mesh`` and ``MeshExecutor``
+both take the one object. The production shapes are the reference's, so
+that the port's placements compare one to one with its specs; a dry-run
+builds them over a fake process group of 256 or 512 ranks
+(``torch.testing._internal.distributed.fake_pg``).
 """
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -72,6 +83,36 @@ class Mesh:
         self.shape = OrderedDict(zip(axes, sizes))
         self.owners = owners
         self.device = resolve_device(device)
+        self._device_mesh = None
+
+    @property
+    def size(self) -> int:
+        """Positions in the mesh."""
+        return int(self.owners.size)
+
+    @property
+    def device_mesh(self):
+        """The ``DeviceMesh`` over the ranks in ``owners`` (one process a
+        position), with the mesh's axis names; built on first use, by every
+        process of the group (a collective)."""
+        if self._device_mesh is None:
+            from torch.distributed.device_mesh import DeviceMesh
+            if len(np.unique(self.owners)) != self.size:
+                raise ValueError("a DeviceMesh needs one process a position; "
+                                 f"this mesh's owners are {self.owners.tolist()}")
+            self._device_mesh = DeviceMesh(self.device.type,
+                                           torch.from_numpy(self.owners),
+                                           mesh_dim_names=self.axis_names)
+        return self._device_mesh
+
+    @property
+    def coordinate(self) -> tuple:
+        """This process's position in the mesh (one index an axis)."""
+        at = np.argwhere(self.owners == compat.process_index())
+        if not len(at):
+            raise ValueError(f"process {compat.process_index()} holds no "
+                             "position of this mesh")
+        return tuple(int(i) for i in at[0])
 
     @property
     def processes(self) -> int:
@@ -98,6 +139,53 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
     4
     """
     return Mesh(shape, axes, device=device)
+
+
+def make_process_mesh(shape: Sequence[int], axes: Sequence[str], *,
+                      ranks: Optional[Sequence[int]] = None,
+                      device=None) -> Mesh:
+    """A mesh of one process a position: ``shape`` over the first
+    prod(shape) of ``ranks`` (default: every rank of the process group, in
+    order), row-major. ``device`` is this process's (``None``: its card,
+    ``cuda:{rank % device_count}``). In one process without a group, a
+    mesh of shape (1, ...) on that device.
+
+    >>> make_process_mesh((1, 1), ("data", "model"), device="cpu").size
+    1
+    """
+    n = int(np.prod(shape))
+    ranks = list(range(compat.process_count())) if ranks is None else list(ranks)
+    if len(ranks) < n:
+        raise ValueError(f"need {n} processes, have {len(ranks)}")
+    owners = np.asarray(ranks[:n], np.int64).reshape(tuple(shape))
+    return Mesh(shape, axes, device=_cluster_device(device), owners=owners)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """The 16×16 production mesh ``("data", "model")``, or 2×16×16
+    ``("pod", "data", "model")`` across two pods, over the first 256 or
+    512 ranks (so a 256-position mesh builds on a 512-rank dry-run
+    group)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_process_mesh(shape, axes, device=device)
+
+
+def make_elastic_mesh(model_parallel: int = 16,
+                      devices: Optional[Sequence[int]] = None, *,
+                      device=None) -> Mesh:
+    """Largest (data, model) grid over the *live* ranks (``devices``:
+    default every rank of the process group) — the elastic restart path: a
+    degraded pod (e.g. 448 of 512) still yields a valid mesh; mp =
+    min(model_parallel, n), lowered until it divides n, and the
+    data-parallel size shrinks to fit. One process: (1, 1)."""
+    ranks = list(range(compat.process_count())) if devices is None else list(devices)
+    n = len(ranks)
+    mp = min(model_parallel, n)
+    while n % mp:
+        mp -= 1
+    return make_process_mesh((n // mp, mp), ("data", "model"), ranks=ranks,
+                             device=device)
 
 
 def _cluster_device(device=None) -> torch.device:

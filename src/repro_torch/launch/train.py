@@ -12,8 +12,16 @@ Without ``--device`` it trains on the card. The behaviours:
     reload-from-checkpoint with bounded retries + backoff.
   * straggler watchdog: per-step wall-time is tracked; steps slower than
     ``factor ×`` the running median are counted and logged.
-  * one device: a mesh (``--mesh`` other than ``none``) waits for the port
-    of ``sharding/`` and raises ``NotImplementedError``.
+  * a mesh: ``--mesh elastic`` (the largest (data, model) grid over the
+    live processes) or ``DxM``, one process a card, under the cluster
+    launcher or ``torchrun``; the state is placed by the sharding rules
+    and a checkpoint restores onto whatever mesh the restart has:
+
+    python -m repro_torch.launch.cluster -n 4 --backend nccl \
+        --target repro_torch.launch.train:cluster_main \
+        --args-json '{"argv": ["--arch", "qwen2_0_5b", "--mesh", "2x2"]}'
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch qwen2_0_5b --mesh 2x2
 """
 from __future__ import annotations
 
@@ -26,11 +34,10 @@ import numpy as np
 from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.configs import get_config, schedule_for
 from repro_torch.data import model_batch
+from repro_torch.launch.mesh import make_elastic_mesh, make_process_mesh
 from repro_torch.optim import make_optimizer, make_schedule
+from repro_torch.sharding import use_mesh
 from repro_torch.train import init_train_state, make_train_step
-
-NO_MESH = ("a mesh needs the port of sharding/ (ROADMAP.md, the LM stack's "
-           "next slice); the port trains on one device")
 
 
 class StragglerWatchdog:
@@ -79,10 +86,23 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
                device=None):
     """Runs training with restart-on-failure on ``device`` (None: the
     card), the learning rate warming up to ``lr`` and following
-    ``schedule`` (``configs.schedule_for`` names an arch's). Returns
-    (state, history)."""
-    if mesh is not None:
-        raise NotImplementedError(NO_MESH)
+    ``schedule`` (``configs.schedule_for`` names an arch's), under
+    ``mesh`` (a ``launch.mesh.Mesh`` of one process a position; its
+    device is this process's) where one is given. Returns (state,
+    history)."""
+    with use_mesh(mesh):
+        return _train_loop(
+            cfg, steps=steps, batch_size=batch_size, seq_len=seq_len,
+            ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, resume=resume, seed=seed,
+            log_every=log_every, fault_hook=fault_hook, policy=policy,
+            watchdog=watchdog, lr=lr, schedule=schedule, eval_every=eval_every,
+            metrics_path=metrics_path,
+            device=mesh.device if mesh is not None else device)
+
+
+def _train_loop(cfg, *, steps, batch_size, seq_len, ckpt_dir, ckpt_every,
+                resume, seed, log_every, fault_hook, policy, watchdog, lr,
+                schedule, eval_every, metrics_path, device):
     policy = policy or RestartPolicy()
     watchdog = watchdog or StragglerWatchdog()
     opt = make_optimizer(cfg.optimizer,
@@ -167,21 +187,29 @@ def main(argv=None):
                     choices=["none", "auto", "must"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default="none",
-                    help="none (a mesh waits for the port of sharding/)")
+                    help="none | elastic | DxM grid like 2x2 (one process a "
+                         "position)")
     ap.add_argument("--eval-every", type=int, default=0)
     ap.add_argument("--metrics", default=None, help="JSONL metrics path")
     ap.add_argument("--device", default=None,
                     help="cpu, or a CUDA device (default: the card)")
     args = ap.parse_args(argv)
 
-    if args.mesh != "none":
-        raise NotImplementedError(NO_MESH)
     cfg = get_config(args.arch, smoke=args.smoke)
+    mesh = None
+    if args.mesh != "none":
+        _join_torchrun()
+        if args.mesh == "elastic":
+            mesh = make_elastic_mesh(device=args.device)
+        else:
+            d, m = (int(v) for v in args.mesh.split("x"))
+            mesh = make_process_mesh((d, m), ("data", "model"),
+                                     device=args.device)
     _, hist = train_loop(
         cfg, steps=args.steps, batch_size=args.batch, seq_len=args.seq,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
         resume=args.resume, seed=args.seed, lr=args.lr,
-        schedule=schedule_for(args.arch),
+        schedule=schedule_for(args.arch), mesh=mesh,
         eval_every=args.eval_every, metrics_path=args.metrics,
         device=args.device)
     if hist:
@@ -189,6 +217,34 @@ def main(argv=None):
         last = np.mean([h["loss"] for h in hist[-5:]])
         print(f"[train] done: loss {first:.4f} -> {last:.4f} "
               f"({len(hist)} steps)")
+
+
+def _join_torchrun() -> None:
+    """Join the process group ``torchrun`` describes in the environment
+    (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``) where
+    none is up yet: NCCL where every process has a card, else gloo."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    if dist.is_initialized() or int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return
+    world = int(os.environ["WORLD_SIZE"])
+    nccl = torch.cuda.is_available() and torch.cuda.device_count() >= world
+    if nccl:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("nccl" if nccl else "gloo", init_method="env://")
+
+
+def cluster_main(ctx) -> dict:
+    """``main`` as a ``repro_torch.launch.cluster`` scenario: the group is
+    up, ``ctx.args["argv"]`` are the CLI's arguments (``--device`` from
+    the launcher where they name none)."""
+    argv = list(ctx.args.get("argv", []))
+    if ctx.device is not None and "--device" not in argv:
+        argv += ["--device", ctx.device]
+    main(argv)
+    return {}
 
 
 if __name__ == "__main__":

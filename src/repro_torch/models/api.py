@@ -19,12 +19,21 @@ takes precomputed embeddings. The serving surface (``forward``,
 ``torch.inference_mode()``: it records no graph, and its tensors carry
 none. The trainer's loss goes through ``train_forward``, the same
 forward where autograd records, with the config's remat.
+
+Under an installed mesh (``repro_torch.sharding.use_mesh``) each entry
+point takes the global batch and runs on this process's data-parallel
+rows of it; ``forward``, ``prefill`` and ``decode_step`` return the
+logits as a DTensor of the global result (vocab over tp, as the
+reference constrains them) and the cache as this process's local
+tensors.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+
+from repro_torch.sharding import runtime as _sr
 
 from . import encdec, lm
 from .config import ModelConfig
@@ -80,6 +89,8 @@ def _vlm_kw(params, batch, cfg: ModelConfig) -> Dict[str, Any]:
 
 def train_forward(params, batch: Dict[str, Any], cfg: ModelConfig,
                   *, return_hidden: bool = False):
+    """Local results: this process's rows under a mesh."""
+    batch = _sr.local_batch(batch)
     if cfg.family == "encdec":
         return encdec.forward(params, batch["frames"], batch["tokens"], cfg,
                               return_hidden=return_hidden)
@@ -91,7 +102,8 @@ def train_forward(params, batch: Dict[str, Any], cfg: ModelConfig,
 @torch.inference_mode()
 def forward(params, batch: Dict[str, Any], cfg: ModelConfig,
             *, return_hidden: bool = False):
-    return train_forward(params, batch, cfg, return_hidden=return_hidden)
+    out, aux = train_forward(params, batch, cfg, return_hidden=return_hidden)
+    return _sr.as_global(out, "dp", None, None if return_hidden else "tp"), aux
 
 
 def head_weights(params, cfg: ModelConfig):
@@ -102,18 +114,24 @@ def head_weights(params, cfg: ModelConfig):
 
 @torch.inference_mode()
 def prefill(params, batch: Dict[str, Any], cfg: ModelConfig, S_max: int):
+    batch = _sr.local_batch(batch)
     if cfg.family == "encdec":
-        return encdec.prefill(params, batch["frames"], batch["tokens"], cfg,
-                              S_max)
-    kw = _vlm_kw(params, batch, cfg) if cfg.family == "vlm" else {}
-    return lm.prefill(params, batch["tokens"], cfg, S_max, **kw)
+        logits, cache = encdec.prefill(params, batch["frames"], batch["tokens"],
+                                       cfg, S_max)
+    else:
+        kw = _vlm_kw(params, batch, cfg) if cfg.family == "vlm" else {}
+        logits, cache = lm.prefill(params, batch["tokens"], cfg, S_max, **kw)
+    return _sr.as_global(logits, "dp", None, "tp"), cache
 
 
 @torch.inference_mode()
 def decode_step(params, cache, token, cfg: ModelConfig):
+    token = _sr.local_batch({"token": token})["token"]
     if cfg.family == "encdec":
-        return encdec.decode_step(params, cache, token, cfg)
-    return lm.decode_step(params, cache, token, cfg)
+        logits, cache = encdec.decode_step(params, cache, token, cfg)
+    else:
+        logits, cache = lm.decode_step(params, cache, token, cfg)
+    return _sr.as_global(logits, "dp", None, "tp"), cache
 
 
 @torch.inference_mode()

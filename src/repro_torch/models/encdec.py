@@ -23,6 +23,11 @@ family).
 The decode cache: ``pos`` (B,) int32, ``k``/``v`` (L, B, S_max, KV, hd)
 and the cross-attention's ``xk``/``xv`` (L, B, enc_seq, KV, hd), in the
 compute dtype.
+
+Under a mesh, as ``lm``: the parameters are placed as they are drawn, each
+layer reads its weights through a ``LocalView`` made inside its
+rematerialised region, and the ``constrain`` calls stand at the
+reference's sites.
 """
 from __future__ import annotations
 
@@ -33,6 +38,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding import runtime as _sr
+from repro_torch.sharding.api import active_mesh, constrain, constrain_seq
 
 from . import layers as L
 from .config import ModelConfig
@@ -98,7 +105,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> EncDec:
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return EncDec(cfg, gen)
+    mesh = active_mesh()
+    if mesh is None:
+        return EncDec(cfg, gen)
+    with _sr.placing(lambda: EncDec(cfg, device="meta"), mesh):
+        return EncDec(cfg, gen)
 
 
 def _remat(body, cfg: ModelConfig):
@@ -112,40 +123,48 @@ def encode(params: EncDec, frames, cfg: ModelConfig):
     frames = as_embeds(frames, params.device)
     B, Se, D = frames.shape
     x = frames.to(L.dt(cfg)) + L.sinusoidal_embed(Se, D, frames.device).to(L.dt(cfg))
+    x = constrain(x, "dp", None, None)
 
     def body(x, lp):
+        lp = _sr.local_view(lp)
+        x = constrain_seq(x)
         h = L.apply_norm(lp.ln1, x, cfg)
         a, _ = L.attention_block(lp.attn, h, cfg, positions=None, bidir=True)
-        x = x + a
-        return x + L.apply_mlp(lp.mlp, L.apply_norm(lp.ln2, x, cfg), cfg)
+        x = constrain_seq(x + a)
+        return constrain_seq(x + L.apply_mlp(lp.mlp, L.apply_norm(lp.ln2, x, cfg),
+                                             cfg))
     body = _remat(body, cfg)
     for lp in params.enc_layers:
         x = body(x, lp)
-    return L.apply_norm(params.enc_norm, x, cfg)
+    return L.apply_norm(_sr.local_view(params).enc_norm, x, cfg)
 
 
 def _dec_embed(params: EncDec, tokens, cfg: ModelConfig, pos0):
     """Token embeddings + sinusoidal positions starting at ``pos0`` (B,)."""
     S = tokens.shape[1]
-    x = F.embedding(tokens, params.embed).to(L.dt(cfg))
+    x = F.embedding(tokens, _sr.local_view(params).embed).to(L.dt(cfg))
     posmat = pos0[:, None] + torch.arange(S, device=tokens.device)[None, :]
-    return x + L.sinusoidal_at(posmat, cfg.d_model).to(L.dt(cfg))
+    return constrain(x + L.sinusoidal_at(posmat, cfg.d_model).to(L.dt(cfg)),
+                     "dp", None, None)
 
 
 def _head(params: EncDec, x, cfg: ModelConfig):
-    return L.matmul(L.apply_norm(params.dec_norm, x, cfg), params.embed.T)
+    top = _sr.local_view(params)
+    return L.matmul(L.apply_norm(top.dec_norm, x, cfg), top.embed.T)
 
 
 def _dec_layer(x, lp: DecBlock, enc_out, cfg: ModelConfig):
     """One decoder layer over the whole sequence. Returns (x', its self
     k/v, its cross k/v)."""
+    lp = _sr.local_view(lp)
     h = L.apply_norm(lp.ln1, x, cfg)
     a, kv = L.attention_block(lp.attn, h, cfg, positions=None)
-    x = x + a
+    x = constrain_seq(x + a)
     xkv = L.encode_kv(lp.xattn, enc_out, cfg)
-    x = x + L.cross_attention_block(lp.xattn, L.apply_norm(lp.ln2, x, cfg),
-                                    xkv, cfg)
-    return x + L.apply_mlp(lp.mlp, L.apply_norm(lp.ln3, x, cfg), cfg), kv, xkv
+    x = constrain_seq(x + L.cross_attention_block(
+        lp.xattn, L.apply_norm(lp.ln2, x, cfg), xkv, cfg))
+    return (constrain_seq(x + L.apply_mlp(lp.mlp, L.apply_norm(lp.ln3, x, cfg), cfg)),
+            kv, xkv)
 
 
 def _dec_inputs(params: EncDec, frames, tokens, cfg: ModelConfig):
@@ -166,7 +185,8 @@ def forward(params: EncDec, frames, tokens, cfg: ModelConfig, *,
     for lp in params.dec_layers:
         x = body(x, lp)
     if return_hidden:
-        return L.apply_norm(params.dec_norm, x, cfg), {}
+        return constrain(L.apply_norm(_sr.local_view(params).dec_norm, x, cfg),
+                         "dp", None, None), {}
     return _head(params, x, cfg), {}
 
 
@@ -207,13 +227,15 @@ def decode_step(params: EncDec, cache, token, cfg: ModelConfig):
     pos = cache["pos"]
     x = _dec_embed(params, token, cfg, pos)
     for i, lp in enumerate(params.dec_layers):
+        lp = _sr.local_view(lp)
         h = L.apply_norm(lp.ln1, x, cfg)
         a, _, _ = L.attention_decode(lp.attn, h, cache["k"][i], cache["v"][i],
                                      pos, cfg)
-        x = x + a
-        x = x + L.cross_attention_block(lp.xattn, L.apply_norm(lp.ln2, x, cfg),
-                                        (cache["xk"][i], cache["xv"][i]), cfg)
-        x = x + L.apply_mlp(lp.mlp, L.apply_norm(lp.ln3, x, cfg), cfg)
+        x = constrain_seq(x + a)
+        x = constrain_seq(x + L.cross_attention_block(
+            lp.xattn, L.apply_norm(lp.ln2, x, cfg),
+            (cache["xk"][i], cache["xv"][i]), cfg))
+        x = constrain_seq(x + L.apply_mlp(lp.mlp, L.apply_norm(lp.ln3, x, cfg), cfg))
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
     return _head(params, x, cfg), new_cache

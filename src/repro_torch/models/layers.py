@@ -35,9 +35,13 @@ Numerics follow the reference op by op:
     computes that formula (``F.softplus`` returns ``x`` past 20: ~2e-9
     apart there, below f32's rounding of x).
 
-The reference's ``shard_map`` branch of ``apply_moe`` (experts sharded over
-a mesh's tensor axis) waits for the port of ``sharding/``; here ``apply_moe``
-is its single-device branch.
+Sharding (``repro_torch.sharding``): the ``constrain`` calls stand at the
+reference's sites and pass local tensors through (a no-op without a mesh,
+adding no kernel). Under a mesh the layer functions take ``LocalView``s of
+their modules, whose parameters are gathered on use, and ``apply_moe``
+takes the reference's expert-parallel branch: each process computes its
+tp shard's experts on its data-parallel rows (``_moe_math``'s ``e_start``,
+``E_loc``) and the partial outputs are summed over tp.
 """
 from __future__ import annotations
 
@@ -50,6 +54,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import upload
+from repro_torch.sharding import runtime as _sr
+from repro_torch.sharding.api import TP_AXIS, active_mesh, constrain
 
 from .config import ModelConfig
 
@@ -78,13 +84,20 @@ def _dense_init(gen: torch.Generator | None, shape, scale: float, dtype,
         return torch.empty(shape, dtype=dtype, device=device)
     fan_in = shape[0] if len(shape) >= 2 else shape[-1]
     std = scale / math.sqrt(fan_in)
-    return (torch.randn(shape, generator=gen, dtype=F32, device=device)
-            * std).to(dtype)
+    # scaled in place: one f32 buffer of the shape (kimi-k2's expert stacks
+    # are 22.5 GB in f32), the same values as ``randn(...) * std``
+    return torch.randn(shape, generator=gen, dtype=F32, device=device
+                       ).mul_(std).to(dtype)
+
+
+# set by ``sharding.runtime.placing``: places each parameter as it is made
+_PLACE = None
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
     # off while serving; the trainer switches it on (train.step)
-    return nn.Parameter(t, requires_grad=False)
+    p = nn.Parameter(t, requires_grad=False)
+    return p if _PLACE is None else _PLACE(p)
 
 
 class _MatmulF32(torch.autograd.Function):
@@ -368,7 +381,7 @@ def attend(q, k, v, cfg: ModelConfig, *, q_pos, window: int = 0,
             _attend_block(q[:, i:i + chunk], k, v, q_pos[:, i:i + chunk],
                           k_idx, window, bidir, cfg)
             for i in range(0, Sq + pad, chunk)], dim=1)[:, :Sq]
-    return out.reshape(B, Sq, H * hd).to(dt(cfg))
+    return constrain(out.reshape(B, Sq, H * hd).to(dt(cfg)), "dp", None, "tp")
 
 
 def attention_block(params: Attention, x, cfg: ModelConfig, *, positions,
@@ -393,6 +406,9 @@ def attention_block(params: Attention, x, cfg: ModelConfig, *, positions,
     if G > 1:
         k = k.repeat_interleave(G, dim=2)
         v = v.repeat_interleave(G, dim=2)
+    k = constrain(k, "dp", None, "tp", None)
+    v = constrain(v, "dp", None, "tp", None)
+    q = constrain(q, "dp", None, "tp", None)
     out = attend(q, k, v, cfg, q_pos=q_pos, window=window, bidir=bidir)
     return matmul_rp(out, params.wo, cfg).to(dt(cfg)), kv_cache
 
@@ -428,6 +444,8 @@ def attention_decode(params: Attention, x, cache_k, cache_v, pos,
         q, k = apply_rope(q, *cs), apply_rope(k, *cs)
     _write_at(cache_k, pos, k[:, 0])
     _write_at(cache_v, pos, v[:, 0])
+    cache_k = constrain(cache_k, "dp", "tp", None, None)
+    cache_v = constrain(cache_v, "dp", "tp", None, None)
     out = attend(q, cache_k, cache_v, cfg, q_pos=pos[:, None], window=window)
     return matmul_rp(out, params.wo, cfg).to(dt(cfg)), cache_k, cache_v
 
@@ -484,11 +502,12 @@ def init_mlp(cfg: ModelConfig, gen=None, *, device=None) -> MLP:
 def apply_mlp(params: MLP, x, cfg: ModelConfig):
     if cfg.act == "silu":
         h = F.silu(matmul_c(x, params.w_gate, cfg)) * matmul_c(x, params.w_up, cfg)
-        return matmul_rp(h.to(dt(cfg)), params.w_down, cfg).to(dt(cfg))
+        h = constrain(h.to(dt(cfg)), "dp", None, "tp")
+        return matmul_rp(h, params.w_down, cfg).to(dt(cfg))
     # jax.nn.gelu is the tanh approximation
     h = F.gelu(matmul_c(x, params.w_up, cfg) + params.b_up, approximate="tanh")
-    return (matmul_rp(h.to(dt(cfg)), params.w_down, cfg)
-            + params.b_down).to(dt(cfg))
+    h = constrain(h.to(dt(cfg)), "dp", None, "tp")
+    return (matmul_rp(h, params.w_down, cfg) + params.b_down).to(dt(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -550,30 +569,42 @@ def _moe_route(xf, router, cfg: ModelConfig, capacity_factor: float):
 
 
 def _moe_math(xf, router, wg, wu, wd, cfg: ModelConfig,
-              capacity_factor: float):
-    """Top-k routed experts with a fixed capacity C an expert, on one
-    device. xf (N, D) in the compute dtype.
+              capacity_factor: float, e_start: int = 0, E_loc: int | None = None):
+    """Top-k routed experts with a fixed capacity C an expert, on a local
+    token shard xf (N, D) in the compute dtype, against the local expert
+    range ``[e_start, e_start + E_loc)`` (default: every expert), whose
+    weights ``wg``/``wu``/``wd`` hold those E_loc experts.
 
     An expert's queue takes its assignments in the order of a stable sort
-    of the flat (token, k) expert ids; past C they are dropped (they add
-    nothing). The queues are gathered (a row of each expert's (C, D)
+    of the flat (token, k) *global* expert ids (so the capacity matches the
+    single-device run); past C they are dropped (they add nothing). Only
+    the local experts' queues are gathered (a row of each expert's (C, D)
     block, zero past its count), and each token's K outputs are gathered
-    back and summed over K in f32: a fixed order, no scatter-add.
-    Returns (out (N, D) f32, aux), aux the Switch-style load-balancing
-    loss."""
+    back and summed over K in f32: a fixed order, no scatter-add; an
+    assignment to another shard's expert adds zero. Returns (partial out
+    (N, D) f32, aux), aux the Switch-style load-balancing loss of these
+    tokens."""
     N, D = xf.shape
     E, K = cfg.num_experts, cfg.top_k
+    E_loc = E if E_loc is None else E_loc
     probs, gate, eidx, order, slot, starts, ends, C = _moe_route(
         xf, router, cfg, capacity_factor)
+    starts, ends = starts[e_start:e_start + E_loc], ends[e_start:e_start + E_loc]
     c = torch.arange(C, device=xf.device)
-    src = (starts[:, None] + c).clamp(max=N * K - 1)          # (E, C)
+    src = (starts[:, None] + c).clamp(max=N * K - 1)          # (E_loc, C)
     filled = c < (ends - starts)[:, None]
     xe = torch.where(filled[..., None], xf[order[src] // K],
                      torch.zeros((), dtype=xf.dtype, device=xf.device))
     h = F.silu(_mm(xe, wg, F32)) * _mm(xe, wu, F32)
-    ye = _mm(h.to(dt(cfg)), wd, F32).to(dt(cfg))              # (E, C, D)
+    ye = _mm(h.to(dt(cfg)), wd, F32).to(dt(cfg))              # (E_loc, C, D)
     keep = slot < C
-    rows = ye.reshape(E * C, D)[(eidx * C + slot.clamp(max=C - 1)).reshape(-1)]
+    if E_loc < E:       # this shard's experts only
+        local_e = eidx - e_start
+        keep = keep & (local_e >= 0) & (local_e < E_loc)
+        at = local_e.clamp(0, E_loc - 1) * C + slot.clamp(max=C - 1)
+    else:
+        at = eidx * C + slot.clamp(max=C - 1)
+    rows = ye.reshape(E_loc * C, D)[at.reshape(-1)]
     contrib = torch.where(keep, gate, 0.0)                    # (N, K)
     out = (rows.reshape(N, K, D) * contrib[..., None]).sum(1)
     me = probs.mean(0)
@@ -586,11 +617,46 @@ def _moe_math(xf, router, wg, wu, wd, cfg: ModelConfig,
 
 def apply_moe(params: MoE, x, cfg: ModelConfig, *,
               capacity_factor: float = 1.25):
-    """Top-k routed MoE with fixed expert capacity (token-dropping): the
-    reference's single-device branch. Returns (out (B,S,D), aux)."""
+    """Top-k routed MoE with fixed expert capacity (token-dropping).
+    Returns (out (B,S,D), aux).
+
+    Under a mesh with a tp axis whose size divides the experts, the
+    reference's expert-parallel branch: tokens stay dp-local (``x`` is
+    this process's rows, the same on every tp process), each tp process
+    computes only its ``E / tp`` experts (their weights gathered over dp),
+    the partial outputs are summed over tp, and the aux loss is the mean
+    over tp, then over dp, of each shard's local aux. The capacity comes
+    from the local token count, so with dp > 1 and drops the result
+    differs from one device's by design, and the aux is not the global
+    one. Otherwise the single-device branch."""
     B, S, D = x.shape
-    out, aux = _moe_math(x.reshape(B * S, D), params.router, params.w_gate,
-                         params.w_up, params.w_down, cfg, capacity_factor)
+    E = cfg.num_experts
+    mesh = active_mesh()
+    if mesh is None or TP_AXIS not in mesh.axis_names or E % mesh.shape[TP_AXIS]:
+        if mesh is not None and _sr.split_over_dp():
+            raise NotImplementedError(
+                "the MoE's single-device branch routes the global batch; with "
+                f"{E} experts the tp axis must divide them on a mesh that "
+                "splits the batch over dp")
+        out, aux = _moe_math(x.reshape(B * S, D), params.router, params.w_gate,
+                             params.w_up, params.w_down, cfg, capacity_factor)
+        return out.reshape(B, S, D).to(dt(cfg)), aux
+    tp = (TP_AXIS,)
+    E_loc = E // mesh.shape[TP_AXIS]
+    e_start = _sr.axis_index(mesh, tp) * E_loc
+    m = _sr.raw(params)
+
+    def local(w):   # this tp shard's experts, gathered over dp
+        w = _sr.gather(w, keep=tp)
+        return w if w.shape[0] == E_loc else w[e_start:e_start + E_loc]
+    out, aux = _moe_math(_sr.pcopy(x, tp).reshape(B * S, D),
+                         _sr.pcopy(params.router, tp), local(m.w_gate),
+                         local(m.w_up), local(m.w_down), cfg, capacity_factor,
+                         e_start, E_loc)
+    out = _sr.psum(out, tp)                     # combine expert shards
+    aux = _sr.pmean(aux, tp)
+    if _sr.split_over_dp():
+        aux = _sr.pmean(aux, _sr.dp_axes(mesh))
     return out.reshape(B, S, D).to(dt(cfg)), aux
 
 

@@ -27,8 +27,15 @@ reference runs the blocks a second time for them; the states are the
 same). Where autograd records (training), ``forward`` rematerialises the
 layers as the config says (``run_layers``: ``remat`` and
 ``remat_block``, the reference's ``_run_layers``); serving records
-nothing and checkpoints nothing. Sharding constraints wait for the port
-of ``sharding/``.
+nothing and checkpoints nothing.
+
+Under an installed mesh (``repro_torch.sharding``) the entry points take
+this process's data-parallel rows (``models.api`` slices the batch),
+``init_params`` places each parameter as it is drawn, and each block
+reads its layer through a ``LocalView`` made inside the block's
+rematerialised region, so a layer's weights are gathered where it runs
+and again in its backward. The ``constrain``/``constrain_seq`` calls
+stand at the reference's sites.
 """
 from __future__ import annotations
 
@@ -42,6 +49,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.device import resolve_device, upload
+from repro_torch.sharding import runtime as _sr
+from repro_torch.sharding.api import active_mesh, constrain, constrain_seq
 
 from . import layers as L
 from .config import ModelConfig
@@ -129,11 +138,17 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> LM:
     dtype (the router stays f32); norm scales 1, biases 0, the SSM's
     ``A_log`` and ``dt_bias`` 0 and ``D`` 1. ``device=None`` is the card
     (raises without one). Not bitwise the JAX package's init: carry its
-    weights with ``interop.params_from_jax`` for that."""
+    weights with ``interop.params_from_jax`` for that. Under a mesh, each
+    parameter is drawn whole, in the same order, and placed at once: each
+    process keeps its shard of the same weights."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return LM(cfg, gen)
+    mesh = active_mesh()
+    if mesh is None:
+        return LM(cfg, gen)
+    with _sr.placing(lambda: LM(cfg, device="meta"), mesh):
+        return LM(cfg, gen)
 
 
 def _layer_flags(cfg: ModelConfig) -> list:
@@ -189,20 +204,22 @@ def _block_fwd(x, lp: Block, is_global, cfg: ModelConfig, positions,
     ``k``/``v``, its SSM ``state``/``conv`` caches and the MoE ``aux``, as
     the family has them."""
     fam = cfg.family
+    lp = _sr.local_view(lp)
+    x = constrain_seq(x)
     h = L.apply_norm(lp.ln1, x, cfg)
     extra: Dict[str, Any] = {}
     if fam == "ssm":
         out, extra["state"], extra["conv"] = L.ssm_block(lp.ssm, h, cfg)
-        return _residual(x, cfg.residual_scale, out), extra
+        return constrain_seq(_residual(x, cfg.residual_scale, out)), extra
     attn_out, (extra["k"], extra["v"]) = L.attention_block(
         lp.attn, h, cfg, positions=positions, window=_window(cfg, is_global),
         cos_sin=cos_sin)
     if fam == "hybrid":
         ssm_out, extra["state"], extra["conv"] = L.ssm_block(lp.ssm, h, cfg)
-        x = _mix(x, lp, attn_out, ssm_out, cfg)
+        x = constrain_seq(_mix(x, lp, attn_out, ssm_out, cfg))
     else:
-        x = _residual(x, cfg.residual_scale, attn_out)
-    return _ffn(x, lp, cfg, extra), extra
+        x = constrain_seq(_residual(x, cfg.residual_scale, attn_out))
+    return constrain_seq(_ffn(x, lp, cfg, extra)), extra
 
 
 def _block_decode(x, lp: Block, cache_l, is_global, pos, cfg: ModelConfig,
@@ -211,6 +228,7 @@ def _block_decode(x, lp: Block, cache_l, is_global, pos, cfg: ModelConfig,
     (``k``/``v`` written in place); returns (x', the SSM's new ``state``
     and ``conv``, for the caller to write)."""
     fam = cfg.family
+    lp = _sr.local_view(lp)
     h = L.apply_norm(lp.ln1, x, cfg)
     new: Dict[str, Any] = {}
     if fam in SSM_FAMILIES:
@@ -321,7 +339,7 @@ def _embed(params: LM, tokens, cfg: ModelConfig, patch_embeds=None):
         pe = L.matmul(as_embeds(patch_embeds, x.device).to(L.dt(cfg)),
                       params.patch_proj).to(L.dt(cfg))
         x = torch.cat([pe, x[:, pe.shape[1]:]], 1)
-    return x
+    return constrain(x, "dp", None, None)
 
 
 def head_weights(params: LM, cfg: ModelConfig):
@@ -335,7 +353,7 @@ def apply_head(w, x, cfg: ModelConfig):
         logits = logits * cfg.logit_scale
     if cfg.logit_softcap > 0:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    return logits
+    return constrain(logits, "dp", None, "tp")
 
 
 def _logits(params: LM, x, cfg: ModelConfig):
@@ -376,7 +394,8 @@ def forward(params: LM, tokens, cfg: ModelConfig, *, positions=None,
     autograd records, the layers are rematerialised as the config says
     (``run_layers``)."""
     tokens = as_tokens(tokens, params.device)
-    x, positions, cos_sin = _inputs(params, tokens, cfg, positions, patch_embeds)
+    top = _sr.local_view(params)
+    x, positions, cos_sin = _inputs(top, tokens, cfg, positions, patch_embeds)
 
     def body(x, lp, flag):
         x, extra = _block_fwd(x, lp, flag, cfg, positions, cos_sin)
@@ -385,8 +404,8 @@ def forward(params: LM, tokens, cfg: ModelConfig, *, positions=None,
                             cfg)
     aux = {"moe_aux": moe_aux if cfg.family == "moe" else 0.0}
     if return_hidden:
-        return L.apply_norm(params.final_norm, x, cfg), aux
-    return _logits(params, x, cfg), aux
+        return constrain(L.apply_norm(top.final_norm, x, cfg), "dp", None, None), aux
+    return _logits(top, x, cfg), aux
 
 
 # ---------------------------------------------------------------------------
@@ -423,7 +442,8 @@ def prefill(params: LM, tokens, cfg: ModelConfig, S_max: int, *,
     B, S = tokens.shape
     cache = init_cache(cfg, B, S_max, device=tokens.device)
     cache["pos"].fill_(S)
-    x, positions, cos_sin = _inputs(params, tokens, cfg, positions, patch_embeds)
+    top = _sr.local_view(params)
+    x, positions, cos_sin = _inputs(top, tokens, cfg, positions, patch_embeds)
     for i, (lp, flag) in enumerate(zip(params.layers, _layer_flags(cfg))):
         x, extra = _block_fwd(x, lp, flag, cfg, positions, cos_sin)
         for name in ("k", "v"):
@@ -432,7 +452,7 @@ def prefill(params: LM, tokens, cfg: ModelConfig, S_max: int, *,
         for name in ("state", "conv"):
             if name in extra:
                 cache[name][i] = extra[name]
-    return _logits(params, x[:, -1:, :], cfg), cache
+    return _logits(top, x[:, -1:, :], cfg), cache
 
 
 def decode_step(params: LM, cache, token, cfg: ModelConfig):
@@ -443,7 +463,8 @@ def decode_step(params: LM, cache, token, cfg: ModelConfig):
     temporal step."""
     token = as_tokens(token, params.device)
     pos = cache["pos"]
-    x = _embed(params, token, cfg)
+    top = _sr.local_view(params)
+    x = _embed(top, token, cfg)
     rope_pos = pos - (cfg.num_patches - 1) \
         if cfg.rope_type == "mrope" and cfg.num_patches else pos
     cos_sin = L.decode_rope(cfg, rope_pos)
@@ -455,4 +476,4 @@ def decode_step(params: LM, cache, token, cfg: ModelConfig):
             cache[name][i] = value
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
-    return _logits(params, x, cfg), new_cache
+    return _logits(top, x, cfg), new_cache

@@ -27,6 +27,13 @@ card.
   * Adafactor keeps factored second moments (row + col instead of full)
     for every leaf of ndim >= 2; its first moment is off, as in the
     original.
+
+On a mesh (``repro_torch.sharding``) the parameters, their gradients and
+the state are DTensors, and an update works on each process's shards:
+AdamW elementwise (a stacked moment's layer slice is placed as that
+layer's parameter), Adafactor with its row and column means, its RMS
+clip and the global norm summed across the shards of the whole stacked
+leaf (its factored state brought to the gradient's layout and back).
 """
 from __future__ import annotations
 
@@ -34,6 +41,8 @@ from typing import Callable, Dict, List, NamedTuple
 
 import numpy as np
 import torch
+
+from repro_torch.sharding import runtime as _sr
 
 F32 = torch.float32
 STACKED = ("layers", "enc_layers", "dec_layers")   # leading L axis in JAX
@@ -82,14 +91,25 @@ def _leaf_shape(key: str, tensors) -> tuple:
     return (len(tensors),) + shape if is_stacked(key) else shape
 
 
+def _sharded(tensors) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(next(iter(tensors)), DTensor)
+
+
 def global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares in f32, leaf by leaf in the reference's
-    order (a 0-d tensor on the grads' device)."""
+    order (a 0-d tensor on the grads' device). Sharded: each process's
+    shards, an element counted once, summed over every process."""
+    sharded = _sharded(grads.values())
     total = None
     for key, names in leaf_groups(grads).items():
-        leaf = sum(grads[n].to(F32).square().sum() for n in names)
+        if sharded:
+            leaf = sum(_sr.local(grads[n]).to(F32).square().sum()
+                       / _sr.replication(grads[n]) for n in names)
+        else:
+            leaf = sum(grads[n].to(F32).square().sum() for n in names)
         total = leaf if total is None else total + leaf
-    return torch.sqrt(total)
+    return torch.sqrt(_sr.sum_everywhere(total) if sharded else total)
 
 
 def clip_scale(grads: Dict[str, torch.Tensor], max_norm: float):
@@ -142,14 +162,18 @@ def adamw(lr_fn, *, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             mu.copy_(new_mu)
             nu.copy_(new_nu)
 
-        for key, names in leaf_groups(params).items():
-            mu, nu = state["mu"][key], state["nu"][key]
-            decay = mu.dim() >= 2
-            if is_stacked(key):
-                for i, n in enumerate(names):
-                    upd(grads[n], mu[i], nu[i], params[n], decay)
-            else:
-                upd(grads[names[0]], mu, nu, params[names[0]], decay)
+        loc = _sr.local  # a process's shards on a mesh (elementwise)
+        with torch.no_grad():
+            for key, names in leaf_groups(params).items():
+                mu, nu = state["mu"][key], state["nu"][key]
+                decay = mu.dim() >= 2
+                if is_stacked(key):
+                    for i, n in enumerate(names):
+                        upd(loc(grads[n]), loc(mu)[i], loc(nu)[i],
+                            loc(params[n]), decay)
+                else:
+                    upd(loc(grads[names[0]]), loc(mu), loc(nu),
+                        loc(params[names[0]]), decay)
         return model, {"mu": state["mu"], "nu": state["nu"], "step": step,
                        "grad_norm": gnorm, "lr": lr}
 
@@ -214,6 +238,10 @@ def adafactor(lr_fn, *, decay: float = 0.8, eps: float = 1e-30,
         with torch.no_grad():
             for key, names in leaf_groups(params).items():
                 v, ps = state["v"][key], [params[n] for n in names]
+                if _sharded(ps):
+                    _sharded_update(key, [_clipped(_sr.local(grads[n]), scale)
+                                          for n in names], v, ps, beta, lr)
+                    continue
                 if chunked_update and is_stacked(key) and ps[0].dim() >= 2 \
                         and len(ps) >= 8:
                     # a layer's slice at a time, as the reference's lax.map
@@ -227,6 +255,43 @@ def adafactor(lr_fn, *, decay: float = 0.8, eps: float = 1e-30,
                     p.copy_(new[i] if is_stacked(key) else new)
         return model, {"v": state["v"], "step": step, "grad_norm": gnorm,
                        "lr": lr}
+
+    def _sharded_update(key, gs, v, ps, beta, lr):
+        """``upd`` on a stacked leaf's shards: ``gs`` each layer's clipped
+        local gradient, ``v`` the leaf's state and ``ps`` its parameters
+        (DTensors). The means, and the RMS, sum over the whole leaf."""
+        stacked = is_stacked(key)
+        pl = (_sr.stacked_placements if stacked else tuple)(ps[0].placements)
+        like = _sr.LeafLayout(ps[0], stacked, len(ps))
+        g = torch.stack(gs) if stacked else gs[0]
+        p = torch.stack([_sr.local(q) for q in ps]) if stacked else _sr.local(ps[0])
+        full = like.shape
+        g2 = g * g + eps
+        if len(full) >= 2:
+            row_pl = _sr.like_layout(pl, len(full), -1)
+            col_pl = _sr.like_layout(pl, len(full), -2)
+            vr0, vc0 = _sr.to_layout(v["vr"], row_pl), _sr.to_layout(v["vc"], col_pl)
+            rows = like.sum(g2.sum(-1), (-1,)) / full[-1]
+            cols = like.sum(g2.sum(-2), (-2,)) / full[-2]
+            vr = beta * vr0 + (1 - beta) * rows.to(F32)
+            vc = beta * vc0 + (1 - beta) * cols.to(F32)
+            denom = like.sum(vr.sum(-1, keepdim=True), (-2,)) / full[-2]
+            rfac = (vr / torch.clamp(denom, min=eps))[..., None]
+            u = g * torch.rsqrt(torch.clamp(rfac * vc[..., None, :], min=eps))
+            _sr.store(v["vr"], vr, row_pl)
+            _sr.store(v["vc"], vc, col_pl)
+        else:
+            nv = beta * _sr.to_layout(v["v"], pl) + (1 - beta) * g2.to(F32)
+            u = g * torch.rsqrt(torch.clamp(nv, min=eps))
+            _sr.store(v["v"], nv, pl)
+        n = float(np.prod(full))
+        rms = torch.sqrt(like.sum((u * u).sum(), range(len(full))) / n + 1e-12)
+        u = u / torch.clamp(rms / clip_rms, min=1.0)
+        if weight_decay and len(full) >= 2:
+            u = u + weight_decay * p.to(F32)
+        new = (p.to(F32) - lr * u).to(p.dtype)
+        for i, q in enumerate(ps):
+            _sr.local(q).copy_(new[i] if stacked else new)
 
     return Optimizer(init, update)
 

@@ -14,6 +14,13 @@ layers as the config says; ``models.forward`` stays inference-only for
 serving.
 
 ``make_serve_steps``: prefill / decode closures.
+
+Under an installed mesh (``repro_torch.sharding.use_mesh``) the state is
+placed by the rules (``init_train_state``: the parameters per
+``params_pspecs``, the optimizer's state per ``state_pspecs``), each
+process takes its data-parallel rows of the batch, its loss is the mean
+over the global batch (a mean over dp of the local means), and the
+gradients arrive on the parameters' shards (``sharding.runtime``).
 """
 from __future__ import annotations
 
@@ -27,6 +34,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _DTYPES
 from repro_torch.models.lm import apply_head, as_embeds, as_tokens
 from repro_torch.optim import Optimizer
+from repro_torch.sharding import runtime as _sr
+from repro_torch.sharding.api import active_mesh
 
 F32 = torch.float32
 
@@ -78,9 +87,12 @@ def chunked_softmax_xent(hidden, head_w, labels, cfg: ModelConfig,
 def make_loss_fn(cfg: ModelConfig, *, moe_aux_weight: float = 0.01,
                  ce_chunk: int = CE_CHUNK):
     def loss_fn(params, batch):
+        batch = _sr.local_batch(batch)
         hidden, aux = api.train_forward(params, batch, cfg, return_hidden=True)
-        loss = chunked_softmax_xent(hidden, api.head_weights(params, cfg),
-                                    batch["labels"], cfg, chunk=ce_chunk)
+        loss = chunked_softmax_xent(hidden, api.head_weights(
+            _sr.local_view(params), cfg), batch["labels"], cfg, chunk=ce_chunk)
+        if _sr.split_over_dp():
+            loss = _sr.pmean(loss, _sr.dp_axes(active_mesh()))
         if cfg.family == "moe":
             loss = loss + moe_aux_weight * aux["moe_aux"]
         return loss, {"loss": loss}
@@ -91,10 +103,16 @@ def init_train_state(cfg: ModelConfig, opt: Optimizer, *, seed: int = 0,
                      device=None) -> Dict[str, Any]:
     """A model from ``seed`` (``models.init_params``; ``device=None`` is the
     card), its parameters switched to require grad, and the optimizer's
-    state."""
+    state; placed by the rules under a mesh."""
     params = api.init_params(cfg, seed=seed, device=device)
     params.requires_grad_(True)
-    return {"params": params, "opt": opt.init(params), "step": 0}
+    state = opt.init(params)
+    mesh = active_mesh()
+    if mesh is not None:
+        from repro_torch.sharding.specs import state_pspecs
+        specs = state_pspecs({"opt": state}, mesh)
+        state = _sr.place_tree(state, specs, mesh, prefix="opt/")
+    return {"params": params, "opt": state, "step": 0}
 
 
 def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -132,7 +150,7 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *,
         return dict(zip(names, grads)), loss.detach()
 
     def accumulated(model, batch):
-        acc = {n: torch.zeros(p.shape, dtype=acc_dt, device=p.device)
+        acc = {n: torch.zeros_like(p, dtype=acc_dt)
                for n, p in model.named_parameters()}
         tot = 0.0
         for i in range(A):

@@ -12,6 +12,7 @@ import torch
 from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.data import token_batch
+from repro_torch.launch import make_process_mesh
 from repro_torch.launch.train import (RestartPolicy, StragglerWatchdog, main,
                                       train_loop)
 from repro_torch.models import api
@@ -164,11 +165,13 @@ def test_train_loop_raises_without_cuda_and_for_a_mesh(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         train_loop(cfg, steps=1, batch_size=2, seq_len=8)
-    with pytest.raises(NotImplementedError, match="sharding"):
-        train_loop(cfg, steps=1, batch_size=2, seq_len=8, mesh=object(),
-                   device="cpu")
-    with pytest.raises(NotImplementedError, match="sharding"):
+    # a mesh of more positions than there are processes (one, here)
+    with pytest.raises(ValueError, match="need 2 processes"):
         main(["--arch", "olmo_1b", "--smoke", "--mesh", "2x1", "--device", "cpu"])
+    with pytest.raises(ValueError, match="need 4 processes"):
+        train_loop(cfg, steps=1, batch_size=2, seq_len=8, device="cpu",
+                   mesh=make_process_mesh((2, 2), ("data", "model"),
+                                          device="cpu"))
 
 
 def test_main_trains_a_smoke_config(tmp_path, capsys):
